@@ -3,30 +3,45 @@
 
     python3 chip_smoke.py
 
-Drives the port's erasure-coding path on the card, in five phases; any
-mismatch or failure exits non-zero:
+Drives the port's erasure-coding paths on the card, RS(10,4) and Clay(10,4),
+in six phases; any mismatch or failure exits non-zero:
 
 1. Build every native source of the port (`seaweedfs_tpu_torch/csrc/`) into
    the git-ignored `seaweedfs_tpu_torch/build/`, compilers in parallel.
-2. The GF(2^8) kernel against its plain torch version on the card, byte for
-   byte: RS(10,4) parity, the 4-lost decode matrix, RS(16,8), Cauchy
-   RS(28,4), ragged widths; and against the numpy `gf256.matmul` tables on
-   a 64 KiB slice.
-3. A fleet-sized device batch: RSCodec encode and 4-lost reconstruct of
-   [V=64, k=10, 8 MiB], timed with CUDA events (median of 7 after warm-up)
-   beside the HBM bound, and held against the plain version volume by
-   volume.
-4. The on-disk main path on a 2 GiB volume of seeded needles (1 KiB-1 MiB):
-   encode_volume_to_ec, rebuild of 4 deleted shards (byte-identical),
+2. Every kernel against its plain torch version on the card, byte for
+   byte.  The GF(2^8) kernel: RS(10,4) parity, the 4-lost decode matrix,
+   RS(16,8), Cauchy RS(28,4), ragged widths, and the numpy `gf256.matmul`
+   tables on a 64 KiB slice; its column-tiled and volume-major entries.
+   The fused Clay kernels: encode at Clay(10,4), (6,3), (4,2) and at
+   ragged window widths; repair of every lost shard 0..13 of Clay(10,4).
+3. Fleet-sized device batches timed with CUDA events (median after
+   warm-up) beside their bounds and held against the plain versions: RS
+   encode and 4-lost reconstruct of [V=64, k=10, 8 MiB] (shard-major and
+   volume-major entries; the volume-major entry has no caller in the
+   package, and its first call here, counted from zero, is its drive);
+   Clay(10,4) fused encode of [10, 512, 256, 4096],
+   fused repair of [13, 512, 64, 4096], and the tiled path (elementwise
+   uncouple/couple around the column-tiled entry) at the encode's shape.
+4. The RS on-disk main path on a 2 GiB volume of seeded needles (1 KiB-1
+   MiB): encode_volume_to_ec, rebuild of 4 deleted shards (byte-identical),
    1,000 degraded needle reads with 2 data shards gone, decode back to a
    byte-identical .dat; then the fleet forms on 4 volumes of 256 MiB:
    encode_ec_files_batch (byte-identical to write_ec_files) and
-   rebuild_ec_files_batch of 4 deleted shards (byte-identical).  The
-   kernel's launch count is zeroed just before this phase and read just
-   after it; it must be > 0.  Then one more encode_volume_to_ec of the
-   2 GiB volume under torch.profiler gives the device's busy share and
-   the kernel's and copies' shares of that call.
-5. The kernels line (JSON), the card line, then the result line.
+   rebuild_ec_files_batch of 4 deleted shards.  The GF(2^8) kernel's
+   launch count is zeroed just before this phase and read just after it,
+   and must be > 0.  Then one
+   more encode_volume_to_ec of the 2 GiB volume under torch.profiler gives
+   the device's busy share and the kernel's and copies' shares of that call.
+5. The Clay on-disk path on a 1 GiB volume of seeded needles, default
+   geometry (1 GiB large / 1 MiB small blocks: q=4, t=4, alpha=256,
+   beta=64, k0=12, w_a=4096): encode_volume_to_ec (data shards identical to
+   an RS encode's, the first window's parity equal to the plain version),
+   single-loss rebuilds of .ec03 and .ec12 (clay-plane-fused, helper bytes
+   read against RS's k shards), a 2-loss rebuild (clay-decode), 300
+   degraded reads with shards 1 and 4 gone, decode back to a byte-identical
+   .dat, and the fleet forms on 4 volumes of 256 MiB.  The two Clay launch
+   counts are zeroed just before this phase and must be > 0 after it.
+6. The kernels line (JSON), the card line, then the result line.
 
 Every number is printed beside the card's name and power limit.  Needs a
 CUDA device; without one it exits non-zero and prints no result.
@@ -34,6 +49,7 @@ CUDA device; without one it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -60,6 +76,25 @@ class SmokeFailure(Exception):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+class Tally:
+    """Per kernel, every comparison of a kernel's output with its plain
+    version: bytes compared, bytes that differ (any differing byte fails
+    the run) and the largest absolute byte difference."""
+
+    def __init__(self):
+        self.by_kernel: dict[str, dict] = {}
+
+    def hold(self, name: str, what: str, got, want) -> None:
+        bad = int((got != want).sum())
+        err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+        t = self.by_kernel.setdefault(
+            name, {"compared_bytes": 0, "mismatches": 0, "max_abs_err": 0})
+        t["compared_bytes"] += got.numel()
+        t["mismatches"] += bad
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        check(bad == 0, f"{what}: {bad} bytes differ from the plain version")
 
 
 def card_line() -> str:
@@ -119,34 +154,30 @@ def kernel_cases(rs_matrix):
     ]
 
 
-def phase_kernel_vs_plain(torch, device, cases, card, gen_seed=1):
+def phase_kernel_vs_plain(torch, device, cases, card, tally, gen_seed=1):
     from seaweedfs_tpu_torch.ops import gf256, rs_cuda
     g = torch.Generator(device=device).manual_seed(gen_seed)
-    worst = 0
     for name, M, shape in cases:
         planes = rs_cuda.matrix_planes(M, device)
         x = torch.randint(0, 256, shape, dtype=torch.uint8, device=device,
                           generator=g)
         got = rs_cuda.gf_matmul_bits_cuda(planes, x)
-        want = rs_cuda.gf_matmul_bits_plain(planes, x)
-        err = int((got.int() - want.int()).abs().max())
-        bad = int((got != want).sum())
-        check(bad == 0, f"{name}: {bad} bytes differ from the plain version")
+        tally.hold("gf2_matmul", name, got,
+                   rs_cuda.gf_matmul_bits_plain(planes, x))
         # independent oracle: the numpy GF(2^8) tables on a 64 KiB slice
         xs = x.reshape(-1, shape[-2], shape[-1])[0, :, :64 * 1024]
         oracle = gf256.matmul(M, xs.cpu().numpy())
         gs = got.reshape(-1, M.shape[0], shape[-1])[0, :, :64 * 1024]
         check(np.array_equal(gs.cpu().numpy(), oracle),
               f"{name}: differs from gf256.matmul")
-        worst = max(worst, err)
         print(f"[kernel] {name} {list(shape)}: 0 bytes differ from plain, "
               f"gf256 slice equal  [{card}]")
-    return worst
 
 
 # -- phase 3 ---------------------------------------------------------------
 
-def phase_fleet(torch, device, card, volumes=64, width=8 * MIB, reps=7):
+def phase_fleet(torch, device, card, tally, volumes=64, width=8 * MIB,
+                reps=7):
     from seaweedfs_tpu_torch.ops import rs_cuda
     from seaweedfs_tpu_torch.ops.codec import RSCodec
     k, m = 10, 4
@@ -173,33 +204,51 @@ def phase_fleet(torch, device, card, volumes=64, width=8 * MIB, reps=7):
               f"fleet reconstruct: shard {s} differs from the original")
     res["reconstruct_ms"] = time_cuda(
         torch, lambda: rs_cuda.gf_matmul_bits_cuda(planes, chosen), reps=reps)
+    # the volume-major entry on the same stack: it has no caller in the
+    # package (nor has its TPU kernel), so this call, counted from zero, is
+    # its drive
+    rs_cuda.vm_launches.reset()
+    vm_parity = rs_cuda.gf_matmul_bits_vm_cuda(codec.parity_planes, data)
+    res["vm_launches"] = rs_cuda.vm_launches.value
+    check(res["vm_launches"] > 0,
+          "the volume-major entry's drive launched it no time")
+    check(torch.equal(vm_parity, parity),
+          "volume-major entry differs from the shard-major one")
+    res["vm_ms"] = time_cuda(
+        torch, lambda: rs_cuda.gf_matmul_bits_vm_cuda(codec.parity_planes,
+                                                      data), reps=reps)
+    del vm_parity
 
     # plain version, one volume at a time (its float32 bit-planes take 32
     # bytes per input byte); timed with events around each chunk
-    worst = 0
-    plain_ms = {"encode": 0.0, "reconstruct": 0.0}
+    plain_ms = {"encode": 0.0, "reconstruct": 0.0, "vm": 0.0}
     for op, pl, src, out in (("encode", codec.parity_planes, data, parity),
-                             ("reconstruct", planes, chosen, rebuilt)):
+                             ("reconstruct", planes, chosen, rebuilt),
+                             ("vm", codec.parity_planes, data, parity)):
+        plain = rs_cuda.gf_matmul_bits_vm_plain if op == "vm" \
+            else rs_cuda.gf_matmul_bits_plain
         for v in range(volumes):
+            src_v = src[v:v + 1] if op == "vm" else src[v]
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            want = rs_cuda.gf_matmul_bits_plain(pl, src[v])
+            want = plain(pl, src_v).reshape(out[v].shape)
             end.record()
             end.synchronize()
             plain_ms[op] += start.elapsed_time(end)
-            bad = int((want != out[v]).sum())
-            check(bad == 0, f"fleet {op}: volume {v}: {bad} bytes differ "
-                            f"from the plain version")
-            worst = max(worst, int((want.int() - out[v].int()).abs().max()))
+            tally.hold("gf2_matmul_vm" if op == "vm" else "gf2_matmul",
+                       f"fleet {op}: volume {v}", out[v], want)
     res["encode_plain_ms"] = plain_ms["encode"]
     res["reconstruct_plain_ms"] = plain_ms["reconstruct"]
+    res["vm_plain_ms"] = plain_ms["vm"]
     res["encode_bound_ms"], res["encode_bound_by"] = bound_ms(
         k * cols, m * cols, gf_ops(m, k, cols))
     res["reconstruct_bound_ms"], res["reconstruct_bound_by"] = bound_ms(
         k * cols, len(LOST) * cols, gf_ops(len(LOST), k, cols))
-    res["max_abs_err"] = worst
     gb_in = k * cols / 1e9
+    print(f"[fleet] encode through the volume-major entry [{volumes}, {k}, "
+          f"{width}]: {res['vm_ms']:.3f} ms, plain {res['vm_plain_ms']:.1f} "
+          f"ms  [{card}]")
     for op in ("encode", "reconstruct"):
         print(f"[fleet] {op} [{volumes}, {k}, {width}]: kernel "
               f"{res[op + '_ms']:.3f} ms ({gb_in / res[op + '_ms'] * 1e3:.1f}"
@@ -208,6 +257,215 @@ def phase_fleet(torch, device, card, volumes=64, width=8 * MIB, reps=7):
               f"plain {res[op + '_plain_ms']:.1f} ms  [{card}]")
     del data, parity, chosen, rebuilt
     torch.cuda.empty_cache()
+    return res
+
+
+# -- clay: phase 2 and 3 ---------------------------------------------------
+
+CLAY_K, CLAY_M = 10, 4
+CLAY_W_A = 4096     # 1 MiB small block / alpha 256
+
+
+def _clay_args(code):
+    from seaweedfs_tpu_torch.ops.clay import GAMMA
+    return dict(q=code.q, t=code.t, gamma=GAMMA)
+
+
+def _repair_input(torch, shards, helpers, plane):
+    """x4 [H, n_win, beta, w_a]: the helpers' plane layers, gathered on the
+    card from the shards [n, n_win, alpha, w_a] (a list of tensors)."""
+    idx = torch.as_tensor(plane, device=shards[0].device)
+    return torch.stack([shards[h].index_select(1, idx) for h in helpers])
+
+
+def phase_clay_kernels_vs_plain(torch, device, card, tally, n_win=8,
+                                w_a=CLAY_W_A, seed=4):
+    """The matmul's column-tiled and volume-major entries and the fused
+    Clay kernels against their plain versions at the main path's per-call
+    shapes (one 8 MiB-per-shard batch = 8 windows) and at ragged widths;
+    the repair also against the encoded shard itself."""
+    from seaweedfs_tpu_torch.ops import clay_cuda, rs_cuda, rs_matrix
+    from seaweedfs_tpu_torch.ops import clay_structured as cs
+    from seaweedfs_tpu_torch.ops.clay_matrix import code
+    g = torch.Generator(device=device).manual_seed(seed)
+    held = tally.hold
+
+    def rand(shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8,
+                             device=device, generator=g)
+
+    rbits = cs.solve_planes(CLAY_K, CLAY_M, None, device)
+    # the tiled path's batch [k0, n_win*alpha*w_a/128, 128]; a ragged X
+    for x in (max(1, n_win * 256 * w_a // 128), 1001):
+        u = rand((12, x, 128))
+        held("gf2_matmul_cols", f"cols entry [12, {x}, 128]",
+             rs_cuda.gf_matmul_bits_cols_cuda(rbits, u),
+             rs_cuda.gf_matmul_bits_cols_plain(rbits, u))
+        print(f"[kernel] gf2_matmul_cols [12, {x}, 128]: 0 bytes differ "
+              f"from plain  [{card}]")
+    gen = rs_matrix.generator_matrix(10, 4)
+    # the RS fleet forms' windows: 4 volumes of 2 MiB per shard
+    width = n_win * w_a * 64
+    for name, M, shape in (
+            ("rs10_4_parity", gen[10:], (4, 10, width)),
+            ("rs10_4_decode_4lost",
+             rs_matrix.decode_matrix(gen, PRESENT, LOST), (4, 10, width)),
+            ("rs10_4_parity_ragged", gen[10:], (3, 10, width // 2 + 17))):
+        pl = rs_cuda.matrix_planes(M, device)
+        d = rand(shape)
+        held("gf2_matmul_vm", f"vm entry {name}",
+             rs_cuda.gf_matmul_bits_vm_cuda(pl, d),
+             rs_cuda.gf_matmul_bits_vm_plain(pl, d))
+        print(f"[kernel] gf2_matmul_vm {name} {list(shape)}: 0 bytes differ "
+              f"from plain  [{card}]")
+
+    cases = [((10, 4), n_win, w_a), ((6, 3), n_win, w_a),
+             ((4, 2), n_win, w_a), ((10, 4), 3, w_a + 3), ((10, 4), 2, 13)]
+    full_w_a = w_a
+    for (k, m), n_win, w_a in cases:
+        c = code(k, m)
+        data = rand((k, n_win, c.alpha, w_a))
+        rb = cs.solve_planes(k, m, None, device)
+        args = dict(_clay_args(c), det_inv=int(c._det_inv))
+        parity = clay_cuda.clay_fused_encode(rb, data, **args)
+        held("clay_fused_encode", f"clay{(k, m)} encode w_a={w_a}", parity,
+             clay_cuda.clay_fused_encode_plain(rb, data, **args))
+        print(f"[kernel] clay_fused_encode Clay{(k, m)} "
+              f"{list(data.shape)}: 0 bytes differ from plain  [{card}]")
+        if (k, m) != (10, 4):
+            continue
+        shards = list(data) + list(parity)
+        losses = range(k + m) if w_a == full_w_a else (0, 9, 10, 13)
+        for lost in losses:
+            helpers, plane, _, inv_gamma = cs.repair_parts(k, m, lost)
+            x4 = _repair_input(torch, shards, helpers, plane)
+            rp = cs.solve_planes(k, m, lost, device)
+            args = dict(_clay_args(c), k=k, lost=lost, inv_gamma=inv_gamma)
+            got = clay_cuda.clay_fused_repair(rp, x4, **args)
+            held("clay_fused_repair", f"clay repair of {lost} w_a={w_a}",
+                 got, clay_cuda.clay_fused_repair_plain(rp, x4, **args))
+            check(torch.equal(got, shards[lost]),
+                  f"clay repair of {lost} differs from the encoded shard")
+        print(f"[kernel] clay_fused_repair Clay{(k, m)} lost "
+              f"{list(losses)} [{k + m - 1}, {n_win}, {c.beta}, {w_a}]: 0 "
+              f"bytes differ from plain, equal to the encoded shards  "
+              f"[{card}]")
+
+
+def _plain_chunked(torch, tally, name, fn, n_win, step, out, what):
+    """Sum of CUDA-event times of fn(w0, w1) over window chunks (the plain
+    versions materialise 32 bytes of float32 planes per input byte), each
+    chunk held against the kernel's output slice out(w0, w1)."""
+    total = 0.0
+    for w0 in range(0, n_win, step):
+        w1 = min(n_win, w0 + step)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = fn(w0, w1)
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+        tally.hold(name, f"{what}: windows {w0}-{w1}", out(w0, w1), want)
+    return total
+
+
+def phase_clay_fleet(torch, device, card, tally, n_win=512, lost=3,
+                     reps=5):
+    """Clay(10,4) at a fleet-sized device batch (512 windows of 1 MiB per
+    shard): the fused encode, the fused repair of one lost shard, and the
+    tiled path with its column-tiled product, timed with CUDA events beside
+    their HBM bounds and held against their plain versions.  The tiled path
+    runs once with the column-tiled entry's launch count zeroed: that run
+    is the tiled path's drive."""
+    from seaweedfs_tpu_torch.ops import clay_cuda, rs_cuda
+    from seaweedfs_tpu_torch.ops import clay_structured as cs
+    from seaweedfs_tpu_torch.ops.clay_matrix import code
+    k, m, w_a = CLAY_K, CLAY_M, CLAY_W_A
+    c = code(k, m)
+    small = c.alpha * w_a
+    g = torch.Generator(device=device).manual_seed(6)
+    data = torch.randint(0, 256, (k, n_win, c.alpha, w_a), dtype=torch.uint8,
+                         device=device, generator=g)
+    rbits = cs.solve_planes(k, m, None, device)
+    enc_args = dict(_clay_args(c), det_inv=int(c._det_inv))
+    res = {"shape_encode": list(data.shape)}
+
+    parity = cs.encode_device_fused(k, m, data, small=small)
+    res["encode_ms"] = time_cuda(
+        torch, lambda: cs.encode_device_fused(k, m, data, small=small),
+        reps=reps)
+    res["encode_plain_ms"] = _plain_chunked(
+        torch, tally, "clay_fused_encode",
+        lambda a, b: clay_cuda.clay_fused_encode_plain(
+            rbits, data[:, a:b].contiguous(), **enc_args),
+        n_win, 8, lambda a, b: parity[:, a:b], "clay fleet encode")
+    cols = n_win * c.alpha * w_a
+    res["encode_bound_ms"], res["encode_bound_by"] = bound_ms(
+        k * cols, m * cols, gf_ops(m, c.k0, cols))
+
+    helpers, plane, _, inv_gamma = cs.repair_parts(k, m, lost)
+    shards = list(data) + list(parity)
+    x4 = _repair_input(torch, shards, helpers, plane)
+    res["shape_repair"] = list(x4.shape)
+    rebuilt = cs.repair_device_fused(k, m, lost, x4)
+    check(torch.equal(rebuilt, shards[lost]),
+          f"clay fleet repair of {lost} differs from the encoded shard")
+    res["repair_ms"] = time_cuda(
+        torch, lambda: cs.repair_device_fused(k, m, lost, x4), reps=reps)
+    rp = cs.solve_planes(k, m, lost, device)
+    rep_args = dict(_clay_args(c), k=k, lost=lost, inv_gamma=inv_gamma)
+    res["repair_plain_ms"] = _plain_chunked(
+        torch, tally, "clay_fused_repair",
+        lambda a, b: clay_cuda.clay_fused_repair_plain(
+            rp, x4[:, a:b].contiguous(), **rep_args),
+        n_win, 8, lambda a, b: rebuilt[a:b], "clay fleet repair")
+    pcols = n_win * c.beta * w_a
+    res["repair_bound_ms"], res["repair_bound_by"] = bound_ms(
+        (k + m - 1) * pcols, n_win * c.alpha * w_a, gf_ops(m, c.k0, pcols))
+    del x4, rebuilt, shards
+
+    # the tiled path: its drive (launches counted), then its timing
+    data5 = data.view(k, n_win, c.alpha, w_a // 128, 128)
+    rs_cuda.cols_launches.reset()
+    tiled = cs.encode_device_tiled(k, m, data5, small=small)
+    torch.cuda.synchronize()
+    res["tiled_path_cols_launches"] = rs_cuda.cols_launches.value
+    check(res["tiled_path_cols_launches"] > 0,
+          "the tiled path launched the column-tiled entry no time")
+    check(torch.equal(tiled.view(parity.shape), parity),
+          "tiled path differs from the fused encode")
+    del tiled
+    res["tiled_ms"] = time_cuda(
+        torch, lambda: cs.encode_device_tiled(k, m, data5, small=small),
+        reps=3, warmup=1)
+    # its column-tiled product alone, on the uncoupled operand's shape
+    u = torch.randint(0, 256, (c.k0, n_win * c.alpha * w_a // 128, 128),
+                      dtype=torch.uint8, device=device, generator=g)
+    u_par = rs_cuda.gf_matmul_bits_cols_cuda(rbits, u)
+    res["cols_ms"] = time_cuda(
+        torch, lambda: rs_cuda.gf_matmul_bits_cols_cuda(rbits, u), reps=reps)
+    per_win = c.alpha * w_a // 128
+    res["cols_plain_ms"] = _plain_chunked(
+        torch, tally, "gf2_matmul_cols",
+        lambda a, b: rs_cuda.gf_matmul_bits_cols_plain(
+            rbits, u[:, a * per_win:b * per_win].contiguous()),
+        n_win, 8, lambda a, b: u_par[:, a * per_win:b * per_win],
+        "cols entry")
+    res["cols_bound_ms"], res["cols_bound_by"] = bound_ms(
+        c.k0 * cols, m * cols, gf_ops(m, c.k0, cols))
+    del data, data5, parity, u, u_par
+    torch.cuda.empty_cache()
+    for op, what in (("encode", f"fused encode {res['shape_encode']}"),
+                     ("repair", f"fused repair of {lost} "
+                                f"{res['shape_repair']}"),
+                     ("cols", f"cols entry [{c.k0}, {cols // 128}, 128]")):
+        print(f"[clay-fleet] {what}: kernel {res[op + '_ms']:.3f} ms, bound "
+              f"{res[op + '_bound_ms']:.3f} ms ({res[op + '_bound_by']}), "
+              f"plain {res[op + '_plain_ms']:.1f} ms  [{card}]")
+    print(f"[clay-fleet] tiled path {res['shape_encode']}: "
+          f"{res['tiled_ms']:.3f} ms (elementwise torch passes + cols "
+          f"entry), equal to the fused encode  [{card}]")
     return res
 
 
@@ -249,6 +507,42 @@ def _files_equal(a: str, b: str) -> bool:
         return True
     return bool(np.array_equal(np.memmap(a, dtype=np.uint8, mode="r"),
                                np.memmap(b, dtype=np.uint8, mode="r")))
+
+
+def degraded_reads(work_dir, vid, needles, geo, codec, gone, reads, seed):
+    """`reads` needle reads through EcVolume with the shards `gone`
+    missing, drawn (seeded) from the needles that touch them; each payload
+    is held against the .dat.  Returns the latency percentiles."""
+    from seaweedfs_tpu_torch.storage import ec
+    from seaweedfs_tpu_torch.storage import types as t
+    ev = ec.EcVolume(work_dir, "", vid, codec=codec)
+    for s in range(geo.total_shards):
+        if s not in gone:
+            ev.add_shard(s)
+    rng = np.random.default_rng(seed)
+    touching = [nd for nd in needles
+                if any(iv.to_shard_id_and_offset(geo)[0] in gone
+                       for iv in ev.locate_ec_shard_needle(nd[0])[2])]
+    check(len(touching) > 0, "no needle touches the lost shards")
+    picks = rng.choice(len(touching), size=reads,
+                       replace=len(touching) < reads)
+    dat = np.memmap(os.path.join(work_dir, str(vid)) + ".dat",
+                    dtype=np.uint8, mode="r")
+    lat = []
+    for i in picks:
+        nid, off, size = touching[int(i)]
+        t0 = time.perf_counter()
+        n = ev.read_needle(nid)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        start = off + t.NEEDLE_HEADER_SIZE + 4   # v2+: dataSize(4) first
+        check(bytes(n.data) == dat[start:start + size].tobytes(),
+              f"degraded read of needle {nid} differs")
+    ev.close()
+    del dat
+    return {"degraded_reads": len(lat),
+            "degraded_distinct_needles": len(set(int(i) for i in picks)),
+            "degraded_p50_ms": float(np.percentile(lat, 50)),
+            "degraded_p99_ms": float(np.percentile(lat, 99))}
 
 
 def phase_main_path(device, card, work_dir, volume_bytes=2 << 30,
@@ -306,33 +600,8 @@ def phase_main_path(device, card, work_dir, volume_bytes=2 << 30,
     gone = [1, 4]
     for s in gone:
         os.replace(path(s), path(s) + ".orig")
-    ev = ec.EcVolume(work_dir, "", 1, codec=codec)
-    for s in range(geo.total_shards):
-        if s not in gone:
-            ev.add_shard(s)
-    rng = np.random.default_rng(seed + 1)
-    touching = [nd for nd in needles
-                if any(iv.to_shard_id_and_offset(geo)[0] in gone
-                       for iv in ev.locate_ec_shard_needle(nd[0])[2])]
-    check(len(touching) > 0, "no needle touches the lost shards")
-    picks = rng.choice(len(touching), size=reads,
-                       replace=len(touching) < reads)
-    dat = np.memmap(base + ".dat", dtype=np.uint8, mode="r")
-    lat = []
-    for i in picks:
-        nid, off, size = touching[int(i)]
-        t0 = time.perf_counter()
-        n = ev.read_needle(nid)
-        lat.append((time.perf_counter() - t0) * 1e3)
-        start = off + t.NEEDLE_HEADER_SIZE + 4   # v2+: dataSize(4) first
-        check(bytes(n.data) == dat[start:start + size].tobytes(),
-              f"degraded read of needle {nid} differs")
-    ev.close()
-    del dat
-    res["degraded_reads"] = len(lat)
-    res["degraded_distinct_needles"] = len(set(int(i) for i in picks))
-    res["degraded_p50_ms"] = float(np.percentile(lat, 50))
-    res["degraded_p99_ms"] = float(np.percentile(lat, 99))
+    res.update(degraded_reads(work_dir, 1, needles, geo, codec, gone, reads,
+                              seed + 1))
 
     # decode back to .dat (rebuilds the 2 missing data shards first)
     os.replace(base + ".dat", base + ".dat.orig")
@@ -356,7 +625,7 @@ def phase_main_path(device, card, work_dir, volume_bytes=2 << 30,
     print(f"[disk] rebuild of shards {lost}: {res['rebuild_s']:.2f} s, "
           f"{res['rebuild_gbps']:.2f} GB/s of survivor bytes read, "
           f"byte-identical  [{card}]")
-    print(f"[disk] degraded read_needle x{len(lat)} "
+    print(f"[disk] degraded read_needle x{res['degraded_reads']} "
           f"({res['degraded_distinct_needles']} distinct, shards {gone} "
           f"gone): p50 {res['degraded_p50_ms']:.3f} ms, p99 "
           f"{res['degraded_p99_ms']:.3f} ms, payloads equal  [{card}]")
@@ -365,13 +634,132 @@ def phase_main_path(device, card, work_dir, volume_bytes=2 << 30,
     return res
 
 
+def phase_clay_disk(torch, card, work_dir, codec, rs_codec,
+                    volume_bytes=1 << 30, reads=300, seed=7):
+    """The Clay path on one needle volume, default geometry: encode (data
+    shards held against an RS encode of the same .dat, the first window's
+    parity against the plain version), single-loss rebuilds of a data and
+    a parity shard (clay-plane-fused), a 2-loss rebuild (clay-decode),
+    degraded reads, decode back to the .dat."""
+    from seaweedfs_tpu_torch.ops import clay_cuda
+    from seaweedfs_tpu_torch.ops import clay_structured as cs
+    from seaweedfs_tpu_torch.storage import ec
+    from seaweedfs_tpu_torch.storage import types as t
+    geo, c = codec.geo, codec.code
+    k, m, small = geo.data_shards, geo.parity_shards, geo.small_block_size
+    vid = 2
+    base = os.path.join(work_dir, str(vid))
+    t0 = time.perf_counter()
+    needles = build_volume(base, volume_bytes, seed)
+    dat_size = os.path.getsize(base + ".dat")
+    res = {"needles": len(needles), "dat_bytes": dat_size,
+           "geometry": {"k": k, "m": m, "q": c.q, "t": c.t,
+                        "alpha": c.alpha, "beta": c.beta, "k0": c.k0,
+                        "w_a": small // c.alpha},
+           "build_volume_s": time.perf_counter() - t0}
+    print(f"[clay-disk] volume: {len(needles)} needles, {dat_size} bytes, "
+          f"geometry {res['geometry']}  [{card}]")
+
+    def path(s, b=base):
+        return b + ec.to_ext(s)
+
+    t0 = time.perf_counter()
+    ec.encode_volume_to_ec(base, version=t.VERSION3, geo=geo, codec=codec)
+    res["encode_s"] = time.perf_counter() - t0
+    shard_size = os.path.getsize(path(0))
+    check(shard_size == geo.shard_file_size(dat_size), "clay shard size")
+    # both codes are systematic: the data shards equal an RS encode's
+    rs_base = os.path.join(work_dir, "3")
+    os.symlink(base + ".dat", rs_base + ".dat")
+    t0 = time.perf_counter()
+    ec.write_ec_files(rs_base, dataclasses.replace(geo, code_kind="rs"),
+                      rs_codec)
+    res["rs_encode_s"] = time.perf_counter() - t0
+    for s in range(k):
+        check(_files_equal(path(s), path(s, rs_base)),
+              f"clay data shard {s} differs from the RS encode's")
+    for s in range(geo.total_shards):
+        os.remove(path(s, rs_base))
+    os.remove(rs_base + ".dat")
+    # the first window's parity against the plain version
+    first = np.stack([np.fromfile(path(s), dtype=np.uint8, count=small)
+                      for s in range(k)])
+    d4 = torch.from_numpy(first.reshape(k, 1, c.alpha, -1)).to(codec.device)
+    want = clay_cuda.clay_fused_encode_plain(
+        cs.solve_planes(k, m, None, codec.device), d4, **_clay_args(c),
+        det_inv=int(c._det_inv)).cpu().numpy().reshape(m, small)
+    got = np.stack([np.fromfile(path(k + p), dtype=np.uint8, count=small)
+                    for p in range(m)])
+    check(np.array_equal(got, want),
+          "first window's clay parity differs from the plain version")
+
+    def rebuild(lost, plan_kind):
+        for s in lost:
+            os.replace(path(s), path(s) + ".orig")
+        stats = {}
+        t0 = time.perf_counter()
+        rebuilt = ec.rebuild_ec_files(base, codec=codec, stats=stats)
+        dt = time.perf_counter() - t0
+        check(rebuilt == lost, f"clay rebuilt {rebuilt}, expected {lost}")
+        check(stats["plan_kind"] == plan_kind,
+              f"clay rebuild of {lost}: plan {stats['plan_kind']}")
+        for s in lost:
+            check(_files_equal(path(s), path(s) + ".orig"),
+                  f"clay rebuilt shard {s} differs")
+            os.remove(path(s) + ".orig")
+        rs_bytes = k * shard_size
+        print(f"[clay-disk] rebuild of {lost}: {plan_kind}, {dt:.2f} s, "
+              f"read {stats['bytes_read']} B against RS's k shards "
+              f"{rs_bytes} B ({stats['bytes_read'] / rs_bytes:.4f}), "
+              f"byte-identical  [{card}]")
+        return {"s": dt, "bytes_read": stats["bytes_read"],
+                "rs_bytes_read": rs_bytes, "plan_kind": plan_kind}
+
+    res["rebuild_3"] = rebuild([3], "clay-plane-fused")
+    res["rebuild_12"] = rebuild([12], "clay-plane-fused")
+    res["rebuild_0_11"] = rebuild([0, 11], "clay-decode")
+
+    gone = [1, 4]
+    for s in gone:
+        os.replace(path(s), path(s) + ".orig")
+    res.update(degraded_reads(work_dir, vid, needles, geo, codec, gone, reads,
+                              seed + 1))
+    os.replace(base + ".dat", base + ".dat.orig")
+    os.replace(base + ".idx", base + ".idx.orig")
+    t0 = time.perf_counter()
+    ec.decode_ec_to_volume(base, codec=codec)
+    res["decode_s"] = time.perf_counter() - t0
+    check(_files_equal(base + ".dat", base + ".dat.orig"),
+          "clay-decoded .dat differs from the original")
+    for s in gone:
+        check(_files_equal(path(s), path(s) + ".orig"),
+              f"clay shard {s} rebuilt by decode differs")
+    for f in os.listdir(work_dir):
+        if f.startswith(f"{vid}."):
+            os.remove(os.path.join(work_dir, f))
+
+    res["encode_gbps"] = dat_size / res["encode_s"] / 1e9
+    print(f"[clay-disk] encode_volume_to_ec: {res['encode_s']:.2f} s, "
+          f"{res['encode_gbps']:.2f} GB/s of .dat (RS encode of the same "
+          f".dat {res['rs_encode_s']:.2f} s); data shards equal RS's, first "
+          f"window's parity equal to plain  [{card}]")
+    print(f"[clay-disk] degraded read_needle x{res['degraded_reads']} "
+          f"({res['degraded_distinct_needles']} distinct, shards {gone} "
+          f"gone): p50 {res['degraded_p50_ms']:.3f} ms, p99 "
+          f"{res['degraded_p99_ms']:.3f} ms, payloads equal  [{card}]")
+    print(f"[clay-disk] decode_ec_to_volume: {res['decode_s']:.2f} s, .dat "
+          f"byte-identical  [{card}]")
+    return res
+
+
 def phase_fleet_disk(card, work_dir, codec, volumes=4,
-                     volume_bytes=256 * MIB + 12345, geo=None, seed=5):
+                     volume_bytes=256 * MIB + 12345, geo=None, seed=5,
+                     lost=(2, 5, 11, 12)):
     """The fleet forms on disk: `volumes` .dat files of one size through
     encode_ec_files_batch, held byte for byte against write_ec_files of
-    each volume alone; then the same 4 shards deleted from every volume,
-    rebuild_ec_files_batch, and the rebuilt shards held against the
-    encoded ones."""
+    each volume alone; then the same `lost` shards deleted from every
+    volume, rebuild_ec_files_batch, and the rebuilt shards held against
+    the encoded ones."""
     from seaweedfs_tpu_torch.storage import ec
     from seaweedfs_tpu_torch.storage import types as t
     geo = geo or ec.DEFAULT_GEOMETRY
@@ -385,8 +773,11 @@ def phase_fleet_disk(card, work_dir, codec, volumes=4,
                             data_shards=geo.data_shards,
                             parity_shards=geo.parity_shards,
                             large_block_size=geo.large_block_size,
-                            small_block_size=geo.small_block_size)
-    res = {"volumes": volumes, "dat_bytes": volume_bytes}
+                            small_block_size=geo.small_block_size,
+                            code_kind=geo.code_kind)
+    res = {"volumes": volumes, "dat_bytes": volume_bytes,
+           "code_kind": geo.code_kind}
+    tag = f"[fleet-disk {geo.code_kind}]"
 
     t0 = time.perf_counter()
     ec.encode_ec_files_batch(bases, geo, codec)
@@ -402,7 +793,7 @@ def phase_fleet_disk(card, work_dir, codec, volumes=4,
             os.remove(single + ec.to_ext(s))
         os.remove(single + ".dat")
 
-    lost = [2, 5, 11, 12]
+    lost = list(lost)
     for b in bases:
         for s in lost:
             os.replace(b + ec.to_ext(s), b + ec.to_ext(s) + ".orig")
@@ -424,13 +815,13 @@ def phase_fleet_disk(card, work_dir, codec, volumes=4,
     res["rebuild_gbps"] = (volumes * geo.data_shards
                            * geo.shard_file_size(volume_bytes)
                            / res["rebuild_s"] / 1e9)
-    print(f"[fleet-disk] encode_ec_files_batch of {volumes} x "
+    print(f"{tag} encode_ec_files_batch of {volumes} x "
           f"{volume_bytes} B: {res['encode_s']:.2f} s, "
           f"{res['encode_gbps']:.2f} GB/s of .dat, byte-identical to "
           f"write_ec_files  [{card}]")
-    print(f"[fleet-disk] rebuild_ec_files_batch of shards {lost}: "
+    print(f"{tag} rebuild_ec_files_batch of shards {lost}: "
           f"{res['rebuild_s']:.2f} s, {res['rebuild_gbps']:.2f} GB/s of "
-          f"survivor bytes read, byte-identical  [{card}]")
+          f"k shards' bytes per volume, byte-identical  [{card}]")
     return res
 
 
@@ -493,8 +884,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from seaweedfs_tpu_torch.ops import _build, rs_cuda, rs_matrix
+    from seaweedfs_tpu_torch.ops import _build, clay_cuda, rs_cuda, rs_matrix
     from seaweedfs_tpu_torch.ops.codec import RSCodec
+    from seaweedfs_tpu_torch.storage.ec import ClayWindowCodec, EcGeometry
 
     device = torch.device("cuda")
     card = card_line()
@@ -506,20 +898,24 @@ def main() -> int:
     _build.build()
     build_s = time.perf_counter() - t0
     print(f"[build] {sorted(_build.SOURCES)} in {build_s:.1f} s  [{card}]")
-    for line in _build.build_logs.get("gf2_matmul", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+    for name in ("gf2_matmul", "clay_fused"):
+        for line in _build.build_logs.get(name, "").splitlines():
+            if any(w in line for w in ("registers", "spill", "entry")):
+                print(f"[build] ptxas {name}: {line.strip()}")
 
     # 2. kernel vs plain
-    worst = phase_kernel_vs_plain(torch, device, kernel_cases(rs_matrix),
-                                  card)
+    tally = Tally()
+    phase_kernel_vs_plain(torch, device, kernel_cases(rs_matrix), card,
+                          tally)
+    phase_clay_kernels_vs_plain(torch, device, card, tally)
 
-    # 3. fleet-sized device batch
-    fleet = phase_fleet(torch, device, card)
-    worst = max(worst, fleet["max_abs_err"])
+    # 3. fleet-sized device batches
+    fleet = phase_fleet(torch, device, card, tally)
+    clay_fleet = phase_clay_fleet(torch, device, card, tally)
 
-    # 4. on-disk main path and its fleet forms, launches counted from zero;
-    # then one more encode of the same volume under the profiler
+    # 4. RS on-disk main path and its fleet forms, launches counted from
+    # zero; then one more encode of the same volume under the profiler.
+    # 5. the Clay on-disk path and its fleet forms, the same way.
     work = work_dir_for(2 << 30)
     try:
         codec = RSCodec(device=device)
@@ -529,28 +925,70 @@ def main() -> int:
         main_launches = rs_cuda.launches.value
         profiled = phase_profile_encode(torch, card, os.path.join(work, "1"),
                                         codec)
+        for f in os.listdir(work):
+            if f.startswith("1."):
+                os.remove(os.path.join(work, f))
+
+        clay_geo = EcGeometry(CLAY_K, CLAY_M, code_kind="clay")
+        clay_codec = ClayWindowCodec(clay_geo, device=device)
+        clay_cuda.encode_launches.reset()
+        clay_cuda.repair_launches.reset()
+        clay_disk = phase_clay_disk(torch, card, work, clay_codec, codec)
+        clay_fleet_disk = phase_fleet_disk(card, work, clay_codec,
+                                           geo=clay_geo, seed=8, lost=(5,))
+        encode_launches = clay_cuda.encode_launches.value
+        repair_launches = clay_cuda.repair_launches.value
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    check(main_launches > 0, "the main path launched the kernel no time")
-    print(f"[disk] gf2_matmul launches on the main path: {main_launches}"
-          f"  [{card}]")
+    check(main_launches > 0, "the RS main path launched the kernel no time")
+    check(encode_launches > 0, "the clay path launched its encode no time")
+    check(repair_launches > 0, "the clay path launched its repair no time")
+    print(f"[disk] launches on the RS path: gf2_matmul {main_launches}; on "
+          f"the clay path: clay_fused_encode {encode_launches}, "
+          f"clay_fused_repair {repair_launches}; on the tiled path: "
+          f"gf2_matmul_cols {clay_fleet['tiled_path_cols_launches']}; in the "
+          f"volume-major entry's drive: gf2_matmul_vm "
+          f"{fleet['vm_launches']}  [{card}]")
 
-    # 5. kernels line, card line, result line
-    kernels = {"kernels": [{
-        "name": "gf2_matmul",
-        "route": "cuda",
-        "source": "seaweedfs_tpu_torch/csrc/gf2_matmul.cu",
-        "replaces": "seaweedfs_tpu/ops/rs_pallas.py:165",
-        "launches": main_launches,
-        "max_abs_err": worst,
-        "ms": fleet["encode_ms"],
-        "plain_ms": fleet["encode_plain_ms"],
-        "bound_ms": fleet["encode_bound_ms"],
-        "bound_by": fleet["encode_bound_by"],
-        "library_ms": None,
-    }]}
+    # 6. kernels line, card line, result line
+    pallas = "seaweedfs_tpu/ops/rs_pallas.py"
+    csrc = "seaweedfs_tpu_torch/csrc"
+
+    def entry(name, source, line, launches, ms, plain_ms, bound,
+              bound_by):
+        held = tally.by_kernel[name]
+        return {"name": name, "route": "cuda", "source": f"{csrc}/{source}",
+                "replaces": f"{pallas}:{line}", "launches": launches,
+                "max_abs_err": held["max_abs_err"],
+                "mismatches": held["mismatches"],
+                "compared_bytes": held["compared_bytes"], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": None}
+
+    cf = clay_fleet
+    kernels = {"kernels": [
+        entry("gf2_matmul", "gf2_matmul.cu", 165, main_launches,
+              fleet["encode_ms"], fleet["encode_plain_ms"],
+              fleet["encode_bound_ms"], fleet["encode_bound_by"]),
+        entry("gf2_matmul_vm", "gf2_matmul.cu", 101, fleet["vm_launches"],
+              fleet["vm_ms"], fleet["vm_plain_ms"],
+              fleet["encode_bound_ms"], fleet["encode_bound_by"]),
+        entry("gf2_matmul_cols", "gf2_matmul.cu", 207,
+              cf["tiled_path_cols_launches"], cf["cols_ms"],
+              cf["cols_plain_ms"], cf["cols_bound_ms"],
+              cf["cols_bound_by"]),
+        entry("clay_fused_encode", "clay_fused.cu", 433, encode_launches,
+              cf["encode_ms"], cf["encode_plain_ms"], cf["encode_bound_ms"],
+              cf["encode_bound_by"]),
+        entry("clay_fused_repair", "clay_fused.cu", 533, repair_launches,
+              cf["repair_ms"], cf["repair_plain_ms"], cf["repair_bound_ms"],
+              cf["repair_bound_by"]),
+    ]}
     details = {"card": card, "build_s": build_s, "fleet": fleet,
-               "disk": disk, "fleet_disk": fleet_disk, "profile": profiled}
+               "clay_fleet": clay_fleet, "disk": disk,
+               "fleet_disk": fleet_disk, "profile": profiled,
+               "clay_disk": clay_disk, "clay_fleet_disk": clay_fleet_disk,
+               "held_against_plain": tally.by_kernel}
     print("details: " + json.dumps(details))
     print(json.dumps(kernels))
     print(card)

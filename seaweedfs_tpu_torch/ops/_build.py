@@ -5,6 +5,8 @@ loaded with ctypes (no PyTorch headers, so a build takes seconds):
 
 - `gf2_matmul.cu` with `nvcc` for `sm_90a` (Hopper), the GF(2^8) codec
   kernel behind ops/rs_cuda.py;
+- `clay_fused.cu` with `nvcc` for `sm_90a`, the fused Clay encode and
+  repair kernels behind ops/clay_cuda.py;
 - `crc32c.cpp` with the host `g++`, the needle checksum behind
   storage/crc.py.
 
@@ -27,7 +29,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
-SOURCES = {"gf2_matmul": "gf2_matmul.cu", "crc32c": "crc32c.cpp"}
+SOURCES = {"gf2_matmul": "gf2_matmul.cu", "clay_fused": "clay_fused.cu",
+           "crc32c": "crc32c.cpp"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -50,11 +53,11 @@ def _nvcc() -> "str | None":
 
 
 def _command(name: str, src: str, out: str) -> list[str]:
-    if name == "gf2_matmul":
+    if src.endswith(".cu"):
         nvcc = _nvcc()
         if nvcc is None:
-            raise BuildError("nvcc not found: the CUDA toolkit is needed to "
-                             "build the GF(2^8) kernel")
+            raise BuildError(f"nvcc not found: the CUDA toolkit is needed to "
+                             f"build {SOURCES[name]}")
         return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                 "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
                 "-Xcompiler", "-fPIC", "-o", out, src]

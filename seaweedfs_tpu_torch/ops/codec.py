@@ -8,20 +8,23 @@ used via enc.Encode / enc.Reconstruct / enc.ReconstructData).
     codec.reconstruct(shards, data_only=True)    # enc.ReconstructData
 
 Accepts/returns numpy uint8; shapes are [k, B] or batched [V, k, B].  Every
-product is one call of ops/rs_cuda.gf_matmul_bits_cuda: the hand-written
-kernel on the GPU (the default device), its plain torch version when the
-caller asks for `device="cpu"`.  With no device given on a host without
-CUDA the constructor raises: the codec never moves to the CPU by itself.
+product is one call of the hand-written kernel of ops/rs_cuda.py on the
+GPU (the default device), its plain torch version when the caller asks for
+`device="cpu"`.  `gf_apply` applies an arbitrary GF(2^8) matrix (the clay
+decode matrices) through the bit-plane product on the device.  With no
+device given on a host without CUDA the constructor raises: the codec never
+moves to the CPU by itself.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
 
-from . import rs_cuda, rs_matrix
+from . import rs_cuda, rs_matrix, rs_torch
 
 
 def resolve_device(device=None) -> torch.device:
@@ -34,6 +37,90 @@ def resolve_device(device=None) -> torch.device:
             "seaweedfs_tpu_torch runs on a CUDA GPU and none is available; "
             "pass device='cpu' to run the plain torch version explicitly")
     return dev
+
+
+def device_call_begin(device: torch.device, stream, inputs: np.ndarray,
+                      fn: Callable[[torch.Tensor], torch.Tensor]
+                      ) -> Callable[[], np.ndarray]:
+    """Start out = fn(inputs as a tensor on `device`); returns fetch() ->
+    numpy.
+
+    On CUDA the host->device copy (from pinned staging), fn's kernels and
+    the device->host copy are queued on `stream` and an event is
+    recorded; only fetch() waits on it.  That is the seam the pipelined
+    disk loops in storage/ec/encoder.py use to overlap disk reads, the
+    device and shard-file writes.  On the CPU fn runs here (its kernels'
+    plain versions) and fetch() returns the result."""
+    inputs = np.ascontiguousarray(inputs, dtype=np.uint8)
+    if device.type != "cuda":
+        if not inputs.flags.writeable:  # torch wants writable memory
+            inputs = inputs.copy()
+        out = fn(torch.from_numpy(inputs)).numpy()
+        return lambda: out
+    staged = torch.empty(inputs.shape, dtype=torch.uint8, pin_memory=True)
+    staged.numpy()[...] = inputs
+    with torch.cuda.stream(stream):
+        dev_out = fn(staged.to(device, non_blocking=True))
+        host = torch.empty(dev_out.shape, dtype=torch.uint8,
+                           pin_memory=True)
+        host.copy_(dev_out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+
+    def fetch():
+        done.synchronize()
+        return host.numpy()
+    return fetch
+
+
+# bit-planes of one gf_apply chunk: float32 planes take 32 bytes per input
+# byte, so a chunk of columns holds at most this many bytes of planes
+GF_APPLY_PLANE_BYTES = 1 << 30
+# float32 sums of 0/1 products are exact up to 2^24 = 8 * KI
+GF_APPLY_MAX_KI = 1 << 21
+
+
+def gf_apply(M: np.ndarray, x: np.ndarray, *, device=None) -> np.ndarray:
+    """out[MO, B] = M ∘GF∘ x[KI, B] for an arbitrary GF(2^8) matrix (numpy
+    in and out) — the executor of the clay flat-matrix paths (multi-loss
+    rebuild, degraded reads).
+
+    It takes the role `rs_jax.gf_matmul_bits` has in the JAX package: the
+    bit-plane product as one float32 `torch.matmul` on the device
+    (`rs_torch.gf_matmul_bits`), not a hand-written kernel, since the
+    [8MO, 8KI] bit matrix (up to [8192, 20480] for clay) is far beyond a
+    kernel's shared memory.  Columns go in chunks of at most
+    GF_APPLY_PLANE_BYTES of planes.  Runs on CUDA unless the caller names
+    another device; the bit matrix of the last few M stays on the device."""
+    dev = resolve_device(device)
+    M = np.ascontiguousarray(M, dtype=np.uint8)
+    x = np.asarray(x, dtype=np.uint8)
+    if M.ndim != 2 or x.ndim != 2 or x.shape[0] != M.shape[1]:
+        raise ValueError(f"gf_apply: M {M.shape} and x {x.shape} do not "
+                         f"chain")
+    mo, ki = M.shape
+    if ki > GF_APPLY_MAX_KI:
+        raise ValueError(f"gf_apply: KI={ki} > {GF_APPLY_MAX_KI} would "
+                         f"overflow the float32 sums")
+    bits = _apply_bits_cached(M.tobytes(), M.shape, dev)
+    b = x.shape[1]
+    out = np.empty((mo, b), dtype=np.uint8)
+    chunk = max(1, GF_APPLY_PLANE_BYTES // (32 * ki))
+    for c0 in range(0, b, chunk):
+        part = torch.from_numpy(np.ascontiguousarray(x[:, c0:c0 + chunk]))
+        out[:, c0:c0 + chunk] = rs_torch.gf_matmul_bits(
+            bits, part.to(dev)).cpu().numpy()
+    return out
+
+
+@functools.lru_cache(maxsize=4)
+def _apply_bits_cached(m_bytes: bytes, shape: tuple,
+                       device: torch.device) -> torch.Tensor:
+    """The float32 bit matrix of one GF matrix on `device`; a decode matrix
+    repeats across rebuild windows and degraded reads."""
+    M = np.frombuffer(m_bytes, dtype=np.uint8).reshape(shape)
+    return torch.from_numpy(rs_matrix.bit_matrix(M)).to(
+        device=device, dtype=torch.float32)
 
 
 class RSCodec:
@@ -62,38 +149,14 @@ class RSCodec:
 
     def _matmul_begin(self, planes: torch.Tensor, inputs: np.ndarray):
         """Issue out = M ∘GF∘ inputs[..., KI, B]; returns fetch() -> numpy.
-
-        On CUDA the host->device copy (from pinned staging), the kernel and
-        the device->host copy are queued on the codec's stream and an event
-        is recorded; only fetch() waits on it.  That is the seam the
-        pipelined disk loops in storage/ec/encoder.py use to overlap disk
-        reads, the device and shard-file writes.  On the CPU the product
-        runs here and fetch() returns it."""
-        inputs = np.ascontiguousarray(inputs, dtype=np.uint8)
-        if self.device.type != "cuda":
-            if not inputs.flags.writeable:  # torch wants writable memory
-                inputs = inputs.copy()
-            out = rs_cuda.gf_matmul_bits_cuda(
-                planes, torch.from_numpy(inputs)).numpy()
-            return lambda: out
-        staged = torch.empty(inputs.shape, dtype=torch.uint8,
-                             pin_memory=True)
-        staged.numpy()[...] = inputs
-        # the decode-matrix cache may drop `planes` while this stream reads it
-        planes.record_stream(self._stream)
-        with torch.cuda.stream(self._stream):
-            dev_in = staged.to(self.device, non_blocking=True)
-            dev_out = rs_cuda.gf_matmul_bits_cuda(planes, dev_in)
-            host = torch.empty(dev_out.shape, dtype=torch.uint8,
-                               pin_memory=True)
-            host.copy_(dev_out, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self._stream)
-
-        def fetch():
-            done.synchronize()
-            return host.numpy()
-        return fetch
+        See device_call_begin for the stream and fetch() contract."""
+        if self._stream is not None:
+            # the decode-matrix cache may drop `planes` while the stream
+            # reads it
+            planes.record_stream(self._stream)
+        return device_call_begin(
+            self.device, self._stream, inputs,
+            lambda x: rs_cuda.gf_matmul_bits_cuda(planes, x))
 
     # -- public API ------------------------------------------------------
     def encode(self, data: np.ndarray) -> np.ndarray:

@@ -9,8 +9,21 @@ of the shard-major `rs_matrix.bit_matrix`).  The kernel replaces the TPU
 kernel `gf_matmul_bits_pallas_sm` (seaweedfs_tpu/ops/rs_pallas.py); the
 source says what bounds it and how.
 
-`gf_matmul_bits_cuda` runs the plain version for a tensor on the CPU.  For
-a tensor on the GPU it launches the kernel or raises.
+Three entries share the kernel, each with its own launch count and plain
+version, one for each layout a TPU kernel of the JAX package took:
+
+- `gf_matmul_bits_cuda`: [KI, N] or [V, KI, N] (`gf_matmul_bits_pallas_sm`,
+  every product of the RS codec, its fleet forms' volume stacks included);
+- `gf_matmul_bits_vm_cuda`: volume-major [V, KI, B] -> [V, MO, B]
+  (`gf_matmul_bits_pallas`, which has no caller in the JAX package either;
+  chip_smoke.py holds it against its plain version);
+- `gf_matmul_bits_cols_cuda`: column-tiled [KI, X, 128] -> [MO, X, 128]
+  (`gf_matmul_bits_pallas_cols`, the layer-MDS product of the clay tiled
+  path, ops/clay_structured.encode_device_tiled).
+
+On the GPU all three are views of one launch: a contiguous [KI, X, 128] is
+[KI, X*128].  Each runs its plain version for a tensor on the CPU; for a
+tensor on the GPU it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -25,6 +38,8 @@ from . import rs_matrix, rs_torch
 
 # shared memory a block may use on Hopper (232,448 bytes)
 MAX_SMEM_BYTES = 227 * 1024
+# minor axis of the column-tiled layout (the TPU's lane width)
+LANE = 128
 
 
 class LaunchCounter:
@@ -47,7 +62,9 @@ class LaunchCounter:
         return self._n
 
 
-launches = LaunchCounter()
+launches = LaunchCounter()       # gf_matmul_bits_cuda
+vm_launches = LaunchCounter()    # gf_matmul_bits_vm_cuda
+cols_launches = LaunchCounter()  # gf_matmul_bits_cols_cuda
 
 _lib_lock = threading.Lock()
 _lib = None
@@ -141,18 +158,10 @@ def _check(mbits_pm: torch.Tensor, data: torch.Tensor) -> tuple[int, int]:
     return mo, ki
 
 
-def gf_matmul_bits_cuda(mbits_pm: torch.Tensor,
-                        data: torch.Tensor) -> torch.Tensor:
-    """out [..., MO, N] = M ∘GF∘ data [..., KI, N] (uint8).
-
-    mbits_pm: plane-major [8MO, 8KI] uint8/int8 0/1, on data's device.
-    data: contiguous [KI, N] or [V, KI, N] uint8, any N.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel on the current stream (no synchronisation) or raises."""
-    mo, ki = _check(mbits_pm, data)
-    if data.device.type == "cpu":
-        return gf_matmul_bits_plain(mbits_pm, data)
+def _launch(mbits_pm: torch.Tensor, data: torch.Tensor, mo: int,
+            ki: int) -> torch.Tensor:
+    """One kernel launch on data [..., KI, N] (checked, on the GPU); the
+    caller counts it."""
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
     lib = _kernel_lib()
@@ -174,5 +183,69 @@ def gf_matmul_bits_cuda(mbits_pm: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"gf2_matmul launch failed: "
                            f"{lib.gf2_error_string(rc).decode()} ({rc})")
+    return out
+
+
+def gf_matmul_bits_cuda(mbits_pm: torch.Tensor,
+                        data: torch.Tensor) -> torch.Tensor:
+    """out [..., MO, N] = M ∘GF∘ data [..., KI, N] (uint8).
+
+    mbits_pm: plane-major [8MO, 8KI] uint8/int8 0/1, on data's device.
+    data: contiguous [KI, N] or [V, KI, N] uint8, any N.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel on the current stream (no synchronisation) or raises."""
+    mo, ki = _check(mbits_pm, data)
+    if data.device.type == "cpu":
+        return gf_matmul_bits_plain(mbits_pm, data)
+    out = _launch(mbits_pm, data, mo, ki)
     launches.add()
     return out
+
+
+def gf_matmul_bits_vm_plain(mbits_pm: torch.Tensor,
+                            data: torch.Tensor) -> torch.Tensor:
+    """The volume-major entry's function in plain torch ops."""
+    return gf_matmul_bits_plain(mbits_pm, data)
+
+
+def gf_matmul_bits_vm_cuda(mbits_pm: torch.Tensor,
+                           data: torch.Tensor) -> torch.Tensor:
+    """Volume-major out [V, MO, B] = M ∘GF∘ data [V, KI, B], any B: the
+    counterpart of the TPU kernel `gf_matmul_bits_pallas`, without its
+    B % block_b padding.  CPU tensors take the plain version."""
+    if data.dim() != 3:
+        raise ValueError(f"data must be [V, KI, B], got {tuple(data.shape)}")
+    mo, ki = _check(mbits_pm, data)
+    if data.device.type == "cpu":
+        return gf_matmul_bits_vm_plain(mbits_pm, data)
+    out = _launch(mbits_pm, data, mo, ki)
+    vm_launches.add()
+    return out
+
+
+def gf_matmul_bits_cols_plain(mbits_pm: torch.Tensor,
+                              data: torch.Tensor) -> torch.Tensor:
+    """The column-tiled entry's function in plain torch ops."""
+    ki, x, lane = data.shape
+    out = gf_matmul_bits_plain(mbits_pm, data.reshape(ki, x * lane))
+    return out.reshape(out.shape[0], x, lane)
+
+
+def gf_matmul_bits_cols_cuda(mbits_pm: torch.Tensor,
+                             data: torch.Tensor) -> torch.Tensor:
+    """Column-tiled out [MO, X, 128] = M ∘GF∘ data [KI, X, 128]: the
+    counterpart of the TPU kernel `gf_matmul_bits_pallas_cols`, any X (no
+    vblock padding).  On the GPU the contiguous operand is the kernel's
+    [KI, X*128] view.  CPU tensors take the plain version."""
+    if data.dim() != 3 or data.shape[-1] != LANE:
+        raise ValueError(f"data must be [KI, X, {LANE}], got "
+                         f"{tuple(data.shape)}")
+    ki, x, lane = data.shape
+    flat = data.reshape(ki, x * lane)
+    mo, _ = _check(mbits_pm, flat)
+    if data.device.type == "cpu":
+        return gf_matmul_bits_cols_plain(mbits_pm, data)
+    out = _launch(mbits_pm, flat, mo, ki)
+    cols_launches.add()
+    return out.reshape(mo, x, lane)

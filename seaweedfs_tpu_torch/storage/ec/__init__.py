@@ -1,5 +1,5 @@
-"""Erasure coding subsystem — RS(k,m) striping of sealed volumes onto shard
-files, with GPU-batched encode/rebuild and degraded reads.
+"""Erasure coding subsystem — RS(k,m) and Clay striping of sealed volumes
+onto shard files, with GPU-batched encode/rebuild and degraded reads.
 
 File family per volume (reference weed/storage/erasure_coding/):
   .ec00-.ec13  shard files (data 0..k-1, parity k..n-1)
@@ -13,12 +13,12 @@ from __future__ import annotations
 import json
 import os
 
-from ...ops.codec import RSCodec
 from .decoder import (find_dat_file_size, read_ec_volume_version,
                       write_dat_file, write_idx_file_from_ec_index)
 from .ec_volume import (EcNotFoundError, EcShardUnavailableError, EcVolume,
                         EcVolumeShard, rebuild_ecx_file)
-from .encoder import (encode_ec_files_batch, rebuild_ec_files,
+from .codes import ClayWindowCodec
+from .encoder import (Codec, encode_ec_files_batch, rebuild_ec_files,
                       rebuild_ec_files_batch, write_ec_files,
                       write_sorted_file_from_idx)
 from .layout import (DATA_SHARDS_COUNT, DEFAULT_GEOMETRY, LARGE_BLOCK_SIZE,
@@ -65,7 +65,7 @@ def geometry_from_vif(base_path: str,
 
 def encode_volume_to_ec(base_path: str, version: int,
                         geo: EcGeometry = DEFAULT_GEOMETRY,
-                        codec: "RSCodec | None" = None) -> None:
+                        codec: "Codec | None" = None) -> None:
     """The full VolumeEcShardsGenerate flow
     (weed/server/volume_grpc_erasure_coding.go:38-80): shards + .ecx + .vif.
 
@@ -86,7 +86,7 @@ def encode_volume_to_ec(base_path: str, version: int,
 
 def decode_ec_to_volume(base_path: str,
                         geo: "EcGeometry | None" = None,
-                        codec: "RSCodec | None" = None) -> None:
+                        codec: "Codec | None" = None) -> None:
     """The VolumeEcShardsToVolume flow
     (volume_grpc_erasure_coding.go VolumeEcShardsToVolume): rebuild missing
     data shards if needed, then stitch .dat and .idx back."""

@@ -1,0 +1,187 @@
+"""Beyond-RS erasure codes over the same shard-file layout: Clay, the MSR
+regenerating code.
+
+`EcGeometry.code_kind` selects the family; shard file names, .ecx, the
+locate math, mounting and reads are unchanged, because the codes are
+systematic: data shards are byte-identical to RS's.  Only parity
+generation and rebuild differ.  LRC is not ported yet and raises.
+
+Symbol layout (clay): every `small_block_size` window of a shard is
+[alpha, small/alpha] layer-major — layer z of window w occupies bytes
+[w*small + z*w_a, +w_a) of the shard file.  Single-node repair therefore
+reads only the beta = alpha/q plane layers of each helper window — real
+partial-range file reads, 1/q of the repair IO of RS at the same storage
+overhead.
+
+Execution: the encode and the single-loss repair each run as one launch of
+a fused kernel (ops/clay_structured.py over csrc/clay_fused.cu); a
+multi-loss rebuild and a degraded read apply a flat decode matrix from the
+numpy oracle (ops/clay_matrix.py) through codec.gf_apply on the device.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ...ops import clay_matrix, clay_structured
+from ...ops.codec import device_call_begin, gf_apply, resolve_device
+from .layout import EcGeometry, to_ext
+
+
+def require_ported(geo: EcGeometry) -> None:
+    """Raise for a code kind the port does not run (LRC)."""
+    if geo.code_kind == "lrc":
+        raise NotImplementedError(
+            "the LRC code is not ported yet (ROADMAP Queue 1 item 6)")
+    if geo.code_kind not in ("rs", "clay"):
+        raise NotImplementedError(f"unknown code kind {geo.code_kind!r}")
+
+
+def window_codec_for(geo: EcGeometry) -> "ClayWindowCodec":
+    """The encode codec write_ec_files uses for non-RS kinds, on the
+    default device."""
+    require_ported(geo)
+    if geo.code_kind != "clay":
+        raise ValueError(f"{geo.code_kind!r} has no window codec")
+    return ClayWindowCodec(geo)
+
+
+class ClayWindowCodec:
+    """Clay encode and single-loss repair on one device.  Each small-block
+    window's [k, small] bytes are viewed as [k, alpha, small/alpha]
+    layer-major symbols and encoded by the fused structured kernel
+    (uncouple -> [m, k0] layer MDS -> couple in one launch): bit-identical
+    to the flat [m*alpha, k*alpha] generator at ~alpha times fewer GF
+    multiplies.  Runs on CUDA unless the caller names another device."""
+
+    def __init__(self, geo: EcGeometry, *, device=None):
+        self.geo = geo
+        self.k = geo.data_shards
+        self.m = geo.parity_shards
+        self.code = clay_matrix.code(self.k, self.m)
+        if geo.small_block_size % self.code.alpha:
+            raise ValueError(
+                f"small_block_size {geo.small_block_size} must be a "
+                f"multiple of clay alpha {self.code.alpha}")
+        self.device = resolve_device(device)
+        self._stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+
+    def _hold_planes(self, lost: "int | None") -> None:
+        """Record the codec's stream on the cached solve planes the next
+        launch reads (lost None: the encode's), as RSCodec does for its
+        decode planes: the cache may drop them while the stream reads."""
+        if self._stream is not None:
+            clay_structured.solve_planes(
+                self.k, self.m, lost, self.device).record_stream(self._stream)
+
+    def encode(self, data: np.ndarray) -> np.ndarray:
+        return self.encode_begin(data)()
+
+    def encode_begin(self, data: np.ndarray):
+        """Start the encode of data [k, W] (W a multiple of the small
+        block; encode_ec_files_batch folds volumes onto this byte axis)
+        asynchronously; returns fetch() -> parity [m, W]."""
+        data = np.asarray(data, dtype=np.uint8)
+        small = self.geo.small_block_size
+        if data.ndim != 2 or data.shape[0] != self.k \
+                or data.shape[1] % small:
+            raise ValueError(f"expected [{self.k}, n * {small}] window "
+                             f"bytes, got {data.shape}")
+        self._hold_planes(None)
+        return device_call_begin(
+            self.device, self._stream, data,
+            lambda d: clay_structured.encode_device(self.k, self.m, d,
+                                                    small=small))
+
+    def repair(self, lost: int, x4: np.ndarray) -> np.ndarray:
+        """The lost shard's windows [n_win, alpha, w_a] from the helpers'
+        plane layers x4 [k+m-1, n_win, beta, w_a] (one fused launch)."""
+        self._hold_planes(lost)
+        return device_call_begin(
+            self.device, self._stream, x4,
+            lambda x: clay_structured.repair_device_fused(
+                self.k, self.m, lost, x))()
+
+
+# -- rebuild ---------------------------------------------------------------
+
+def rebuild_clay(base_path: str, geo: EcGeometry, missing: list[int],
+                 batch_bytes: int, codec: ClayWindowCodec,
+                 stats: "dict | None" = None) -> list[int]:
+    """Clay rebuild.  One loss: bandwidth-optimal repair reading only the
+    beta plane layers of every helper window (beta/alpha = 1/q of each
+    helper's bytes) into the fused repair kernel.  Multi-loss: flat decode
+    from k full survivors through gf_apply."""
+    k, m = geo.data_shards, geo.parity_shards
+    n = geo.total_shards
+    small = geo.small_block_size
+    alpha, win_a = codec.code.alpha, small // codec.code.alpha
+    have = [os.path.exists(base_path + to_ext(i)) for i in range(n)]
+    wins_per_batch = max(1, batch_bytes // small)
+    bytes_read = 0
+
+    if len(missing) == 1:
+        lost = missing[0]
+        helpers, plane, _, _ = clay_structured.repair_parts(k, m, lost)
+        inputs = {h: np.memmap(base_path + to_ext(h), dtype=np.uint8,
+                               mode="r") for h in helpers}
+        shard_size = len(next(iter(inputs.values())))
+        if shard_size % small:
+            raise ValueError(f"shard size {shard_size} is not a multiple "
+                             f"of the small block {small}")
+        plane_idx = np.asarray(plane)
+        with open(base_path + to_ext(lost), "wb") as out:
+            for w0 in range(0, shard_size // small, wins_per_batch):
+                wn = min(wins_per_batch, shard_size // small - w0)
+                # helper-major [H, wn, beta, win_a]: the gather is the
+                # partial-range plane read; the kernel returns the natural
+                # [wn, alpha, win_a] layer-major layout, written verbatim
+                x4 = np.empty((len(helpers), wn, len(plane), win_a),
+                              dtype=np.uint8)
+                for hi, h in enumerate(helpers):
+                    span = inputs[h][w0 * small:(w0 + wn) * small]
+                    x4[hi] = span.reshape(wn, alpha, win_a)[:, plane_idx]
+                bytes_read += x4.size
+                out.write(codec.repair(lost, x4).tobytes())
+        if stats is not None:
+            stats["bytes_read"] = bytes_read
+            stats["plan_kind"] = "clay-plane-fused"
+            stats["helpers"] = list(helpers)
+            stats["layers_per_helper"] = len(plane)
+        return missing
+
+    # multi-loss: flat decode over k full survivors
+    present = tuple(i for i in range(n) if have[i])
+    D = clay_matrix.decode_flat(k, m, present, tuple(missing))
+    chosen = present[:k]
+    inputs = {i: np.memmap(base_path + to_ext(i), dtype=np.uint8,
+                           mode="r") for i in chosen}
+    shard_size = len(next(iter(inputs.values())))
+    outputs = {i: open(base_path + to_ext(i), "wb") for i in missing}
+    try:
+        for w0 in range(0, shard_size // small, wins_per_batch):
+            wn = min(wins_per_batch, shard_size // small - w0)
+            x = np.empty((k * alpha, wn * win_a), dtype=np.uint8)
+            for ci, i in enumerate(chosen):
+                span = np.asarray(inputs[i][w0 * small:(w0 + wn) * small])
+                bytes_read += span.size
+                x[ci * alpha:(ci + 1) * alpha] = np.ascontiguousarray(
+                    span.reshape(wn, alpha, win_a).transpose(1, 0, 2)
+                ).reshape(alpha, -1)
+            rec = gf_apply(D, x, device=codec.device)
+            for row, t in enumerate(missing):
+                part = rec[row * alpha:(row + 1) * alpha]
+                outputs[t].write(np.ascontiguousarray(
+                    part.reshape(alpha, wn, win_a).transpose(1, 0, 2)
+                ).tobytes())
+    finally:
+        for f in outputs.values():
+            f.close()
+    if stats is not None:
+        stats["bytes_read"] = bytes_read
+        stats["plan_kind"] = "clay-decode"
+    return missing

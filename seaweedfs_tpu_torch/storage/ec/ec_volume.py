@@ -13,7 +13,7 @@ ec_shard.go:17-93 and the read/recover path of weed/storage/store_ec.go:
   or — degraded path — reconstructed on the fly from >= k other shards in
   ONE batched codec call (store_ec.go:125-382, recoverOneRemoteEcShardInterval).
 
-Only Reed-Solomon geometries are ported; a clay or LRC volume raises.
+Reed-Solomon and Clay volumes are served; an LRC volume raises.
 """
 
 from __future__ import annotations
@@ -24,12 +24,13 @@ from typing import Callable
 
 import numpy as np
 
-from ...ops.codec import RSCodec
+from ...ops import clay_matrix
+from ...ops.codec import gf_apply
 from .. import types as t
 from ..idx import parse_index_bytes
 from ..needle import Needle
 from .decoder import iterate_ecj_keys
-from .encoder import require_rs
+from .encoder import Codec, codec_for
 from .layout import EcGeometry, Interval, locate_data, to_ext
 from .shard_bits import ShardBits
 
@@ -78,7 +79,7 @@ class EcVolume:
 
     def __init__(self, directory: str, collection: str, vid: int,
                  geo: "EcGeometry | None" = None,
-                 codec: RSCodec | None = None,
+                 codec: "Codec | None" = None,
                  remote_reader: RemoteShardReader | None = None,
                  version: int = t.CURRENT_VERSION):
         self.directory = directory
@@ -88,9 +89,8 @@ class EcVolume:
             # wide-stripe volumes are self-describing via .vif
             from . import geometry_from_vif
             geo = geometry_from_vif(self._base())
-        require_rs(geo)
         self.geo = geo
-        self.codec = codec or RSCodec(geo.data_shards, geo.parity_shards)
+        self.codec = codec_for(geo, codec)
         self.remote_reader = remote_reader
         self.version = version
         self.shards: dict[int, EcVolumeShard] = {}
@@ -225,7 +225,12 @@ class EcVolume:
                               size: int) -> bytes:
         """Degraded read: gather [offset, offset+size) from >= k other
         shards, reconstruct the missing one in a single codec call
-        (recoverOneRemoteEcShardInterval store_ec.go:328-382)."""
+        (recoverOneRemoteEcShardInterval store_ec.go:328-382).  Clay
+        decodes whole alpha-layer windows instead (see
+        _reconstruct_interval_clay)."""
+        if self.geo.code_kind == "clay":
+            return self._reconstruct_interval_clay(missing_shard, offset,
+                                                   size)
         n = self.geo.total_shards
         shards: list[np.ndarray | None] = [None] * n
         got = 0
@@ -241,6 +246,45 @@ class EcVolume:
                 f"vol {self.volume_id} shard {missing_shard}: only {got} "
                 f"shards reachable, need {self.geo.data_shards}")
         return self.codec.reconstruct(shards)[missing_shard].tobytes()
+
+    def _reconstruct_interval_clay(self, missing_shard: int, offset: int,
+                                   size: int) -> bytes:
+        """Clay symbols live in [alpha, win_a] layers per small-block
+        window: align the read to whole windows, flat-decode from the first
+        k reachable survivors on the codec's device (gf_apply), slice the
+        requested bytes.  The beta-plane partial reads are reserved for
+        rebuild, where helpers are local files."""
+        geo = self.geo
+        code = self.codec.code
+        small = geo.small_block_size
+        alpha, win_a = code.alpha, small // code.alpha
+        w0 = offset // small
+        w1 = -(-(offset + size) // small)
+        a_off, wn = w0 * small, w1 - w0
+        a_size = wn * small
+        present, blocks = [], []
+        for sid in range(geo.total_shards):
+            if sid == missing_shard or len(present) >= geo.data_shards:
+                continue
+            raw = self._read_local_or_remote(sid, a_off, a_size)
+            if raw is not None and len(raw) == a_size:
+                present.append(sid)
+                arr = np.frombuffer(raw, dtype=np.uint8)
+                blocks.append(np.ascontiguousarray(
+                    arr.reshape(wn, alpha, win_a).transpose(1, 0, 2)
+                ).reshape(alpha, -1))
+        if len(present) < geo.data_shards:
+            raise EcShardUnavailableError(
+                f"vol {self.volume_id} shard {missing_shard}: only "
+                f"{len(present)} shards reachable, need {geo.data_shards}")
+        D = clay_matrix.decode_flat(geo.data_shards, geo.parity_shards,
+                                    tuple(present), (missing_shard,))
+        rec = gf_apply(D, np.concatenate(blocks, axis=0),
+                       device=self.codec.device)
+        window = np.ascontiguousarray(
+            rec.reshape(alpha, wn, win_a).transpose(1, 0, 2)).reshape(-1)
+        lo = offset - a_off
+        return window[lo:lo + size].tobytes()
 
     def read_interval(self, interval: Interval) -> bytes:
         shard_id, shard_offset = interval.to_shard_id_and_offset(self.geo)

@@ -10,13 +10,15 @@ Capability-equivalent to weed/storage/erasure_coding/ec_encoder.go
   buffer; only parity costs compute.
 - Rebuild reads all surviving shards' aligned windows into a [n_have, B]
   batch and reconstructs every missing shard in one codec call per window.
+- Clay geometries (`code_kind="clay"`) take the window codec and rebuild of
+  storage/ec/codes.py: the same shard files, other parity math.
 
 One deliberate divergence: the reference encodes a .dat whose size is an
 exact multiple of the large row as small blocks (`>` at ec_encoder.go:215)
 but *decodes* it as large blocks (`>=` at ec_decoder.go:175) — an
 inconsistent edge.  We use `>=` on both sides so every size round-trips.
 
-Only Reed-Solomon geometries are ported; a clay or LRC geometry raises.
+Reed-Solomon and Clay geometries are ported; an LRC geometry raises.
 """
 
 from __future__ import annotations
@@ -25,12 +27,15 @@ import itertools
 import os
 import queue as _queue
 import threading
+from typing import Union
 
 import numpy as np
 
 from ...ops.codec import RSCodec
 from ..idx import index_array_to_bytes, parse_index_bytes
 from ..types import TOMBSTONE_FILE_SIZE
+from .codes import (ClayWindowCodec, rebuild_clay, require_ported,
+                    window_codec_for)
 from .layout import DEFAULT_GEOMETRY, EcGeometry, to_ext
 
 # Per-shard bytes fed to one codec call: 8 MB x 10 shards = 80 MB reads.
@@ -41,19 +46,6 @@ DEFAULT_BATCH_BYTES = 8 * 1024 * 1024
 # encodes batch N and the writer drains N-1, the producer reads N+1 from
 # disk.
 PIPELINE_DEPTH = 2
-
-# ROADMAP items that port the other code families
-_NOT_PORTED = {
-    "clay": "the clay code is not ported yet (ROADMAP Queue 1 item 5)",
-    "lrc": "the LRC code is not ported yet (ROADMAP Queue 1 item 6)",
-}
-
-
-def require_rs(geo: EcGeometry) -> None:
-    if geo.code_kind != "rs":
-        raise NotImplementedError(
-            _NOT_PORTED.get(geo.code_kind,
-                            f"unknown code kind {geo.code_kind!r}"))
 
 
 def _pipelined(produce, consume) -> None:
@@ -96,12 +88,25 @@ def _pipelined(produce, consume) -> None:
         raise errs[0]
 
 
-def _codec_for(geo: EcGeometry, codec: "RSCodec | None") -> RSCodec:
-    require_rs(geo)
+Codec = Union[RSCodec, ClayWindowCodec]
+
+
+def codec_for(geo: EcGeometry, codec: "Codec | None" = None) -> "Codec":
+    """The caller's codec, checked against the geometry, or a new one for
+    it on the default device: RSCodec for RS, ClayWindowCodec for clay."""
+    require_ported(geo)
+    cls = ClayWindowCodec if geo.code_kind == "clay" else RSCodec
     if codec is not None:
-        if (codec.k, codec.m) != (geo.data_shards, geo.parity_shards):
+        if not isinstance(codec, cls):
+            raise ValueError(f"a {type(codec).__name__} cannot code a "
+                             f"{geo.code_kind!r} geometry")
+        if (codec.k, codec.m) != (geo.data_shards, geo.parity_shards) or (
+                cls is ClayWindowCodec and codec.geo.small_block_size
+                != geo.small_block_size):   # the clay symbol windows
             raise ValueError("codec geometry does not match EC geometry")
         return codec
+    if cls is ClayWindowCodec:
+        return window_codec_for(geo)
     return RSCodec(geo.data_shards, geo.parity_shards)
 
 
@@ -183,14 +188,14 @@ def _open_dat(base: str) -> tuple[np.ndarray, int]:
 
 
 def write_ec_files(base_path: str, geo: EcGeometry = DEFAULT_GEOMETRY,
-                   codec: "RSCodec | None" = None,
+                   codec: "Codec | None" = None,
                    batch_bytes: int = DEFAULT_BATCH_BYTES) -> None:
     """<base>.dat -> <base>.ec00 .. (WriteEcFiles ec_encoder.go:57).
 
     Pipelined: the calling thread reads batch N+1 from .dat and submits its
     encode while the device computes batch N and a writer thread appends
     batch N-1's shards."""
-    codec = _codec_for(geo, codec)
+    codec = codec_for(geo, codec)
     dat, dat_size = _open_dat(base_path)
     outputs = [open(base_path + to_ext(i), "wb")
                for i in range(geo.total_shards)]
@@ -217,15 +222,17 @@ def write_ec_files(base_path: str, geo: EcGeometry = DEFAULT_GEOMETRY,
 
 def encode_ec_files_batch(base_paths: list[str],
                           geo: EcGeometry = DEFAULT_GEOMETRY,
-                          codec: "RSCodec | None" = None,
+                          codec: "Codec | None" = None,
                           batch_bytes: int = DEFAULT_BATCH_BYTES) -> None:
     """Fleet encode: <base>.dat -> shard files for MANY volumes with
     batched codec dispatches.
 
     Volumes that share a shard-file size (ergo the same batch width
-    sequence) stack into [V, k, width] and every window is ONE codec call.
-    Odd-sized volumes take the per-volume path.  Shard bytes are identical
-    to write_ec_files."""
+    sequence) share every window's codec call: RS stacks them into
+    [V, k, width], clay folds them onto the byte axis [k, V*width] (its
+    transform is window-local, so concatenated volumes encode independently
+    and bit-identically).  Odd-sized volumes take the per-volume path.
+    Shard bytes are identical to write_ec_files."""
     groups: dict[int, list[str]] = {}
     for base in base_paths:
         dat_size = os.path.getsize(base + ".dat")
@@ -238,17 +245,18 @@ def encode_ec_files_batch(base_paths: list[str],
 
 
 def _encode_group(bases: list[str], geo: EcGeometry,
-                  codec: "RSCodec | None", batch_bytes: int) -> None:
+                  codec: "Codec | None", batch_bytes: int) -> None:
     """One same-shard-size group of encode_ec_files_batch: V volumes'
     batch iterators advance in lockstep (equal shard size => provably
     equal width sequences) and every window is one grouped dispatch."""
-    codec = _codec_for(geo, codec)
+    codec = codec_for(geo, codec)
     k, m, v = geo.data_shards, geo.parity_shards, len(bases)
     small = geo.small_block_size
     # per-volume batch width shrinks with group size so the grouped
     # dispatch stays near batch_bytes of host copies total; floored to
     # one small block (width sequences must stay block-aligned)
     vol_batch = max(small, batch_bytes // v // small * small)
+    rs = geo.code_kind == "rs"
     dats = [_open_dat(b) for b in bases]
     outputs = [[open(b + to_ext(i), "wb")
                 for i in range(geo.total_shards)] for b in bases]
@@ -264,20 +272,24 @@ def _encode_group(bases: list[str], geo: EcGeometry,
                     or len({p.shape[1] for p in parts}) != 1:
                 raise RuntimeError(
                     "same-shard-size volumes must batch in lockstep")
-            # np.stack COPIES out of the per-volume cycled pools, so the
-            # yielded batch stays valid in the pipeline
-            data = np.stack(parts)
+            # stack/concatenate COPY out of the per-volume cycled pools,
+            # so the yielded batch stays valid in the pipeline
+            data = np.stack(parts) if rs else np.concatenate(parts, axis=1)
             yield data, codec.encode_begin(data)
 
     def consume(item):
         data, fetch = item
+        width = data.shape[-1] if rs else data.shape[-1] // v
         for vi in range(v):
+            dpart = data[vi] if rs else data[:, vi * width:(vi + 1) * width]
             for s in range(k):
-                outputs[vi][s].write(data[vi, s])
+                outputs[vi][s].write(dpart[s])
         parity = fetch()
         for vi in range(v):
+            ppart = parity[vi] if rs \
+                else parity[:, vi * width:(vi + 1) * width]
             for p in range(m):
-                outputs[vi][k + p].write(parity[vi, p])
+                outputs[vi][k + p].write(ppart[p])
 
     try:
         _pipelined(produce(), consume)
@@ -288,10 +300,15 @@ def _encode_group(bases: list[str], geo: EcGeometry,
 
 
 def rebuild_ec_files(base_path: str, geo: "EcGeometry | None" = None,
-                     codec: "RSCodec | None" = None,
-                     batch_bytes: int = DEFAULT_BATCH_BYTES) -> list[int]:
+                     codec: "Codec | None" = None,
+                     batch_bytes: int = DEFAULT_BATCH_BYTES,
+                     stats: "dict | None" = None) -> list[int]:
     """Regenerate every missing .ecNN from the surviving ones
-    (RebuildEcFiles ec_encoder.go:61/233).  Returns rebuilt shard ids."""
+    (RebuildEcFiles ec_encoder.go:61/233).  Returns rebuilt shard ids.
+
+    `stats`, when given, is filled with the rebuild's read accounting
+    ({"bytes_read", "plan_kind", ...}): how clay's repair-IO advantage is
+    measured.  Clay volumes take codes.rebuild_clay."""
     if geo is None:
         from . import geometry_from_vif
         geo = geometry_from_vif(base_path)
@@ -303,7 +320,10 @@ def rebuild_ec_files(base_path: str, geo: "EcGeometry | None" = None,
     if sum(have) < geo.data_shards:
         raise ValueError(
             f"need >= {geo.data_shards} shards to rebuild, have {sum(have)}")
-    codec = _codec_for(geo, codec)
+    codec = codec_for(geo, codec)
+    if geo.code_kind == "clay":
+        return rebuild_clay(base_path, geo, missing, batch_bytes, codec,
+                            stats=stats)
     inputs = {i: np.memmap(base_path + to_ext(i), dtype=np.uint8, mode="r")
               for i in range(n) if have[i]}
     shard_size = len(next(iter(inputs.values())))
@@ -311,6 +331,7 @@ def rebuild_ec_files(base_path: str, geo: "EcGeometry | None" = None,
         if len(arr) != shard_size:
             raise ValueError(f"shard {i} size {len(arr)} != {shard_size}")
     outputs = {i: open(base_path + to_ext(i), "wb") for i in missing}
+    used = [i for i in range(n) if have[i]][:geo.data_shards]
 
     def produce():
         for off in range(0, shard_size, batch_bytes):
@@ -332,25 +353,30 @@ def rebuild_ec_files(base_path: str, geo: "EcGeometry | None" = None,
     finally:
         for f in outputs.values():
             f.close()
+    if stats is not None:
+        stats["bytes_read"] = len(used) * shard_size
+        stats["plan_kind"] = "rs-full"
+        stats["read_shards"] = used
     return missing
 
 
 def rebuild_ec_files_batch(base_paths: list[str],
                            batch_bytes: int = DEFAULT_BATCH_BYTES,
-                           codec: "RSCodec | None" = None
+                           codec: "Codec | None" = None
                            ) -> dict[str, list[int]]:
     """Fleet rebuild: regenerate missing shards across MANY volumes with
     batched [V, B] codec calls.
 
-    Volumes sharing (geometry, loss mask, shard size) stack onto the
+    RS volumes sharing (geometry, loss mask, shard size) stack onto the
     codec's leading batch axis and every window is ONE device round for the
-    whole group.  Odd-one-out volumes take the single path.
+    whole group.  Odd-one-out volumes take the single path, and clay
+    volumes rebuild one by one (their reduced-IO repair in codes.py).
     Returns {base_path: rebuilt shard ids}."""
     from . import geometry_from_vif
     groups: dict[tuple, list[str]] = {}
     for base in base_paths:
         geo = geometry_from_vif(base)
-        require_rs(geo)
+        require_ported(geo)
         n = geo.total_shards
         have = tuple(os.path.exists(base + to_ext(i)) for i in range(n))
         if all(have):
@@ -364,13 +390,14 @@ def rebuild_ec_files_batch(base_paths: list[str],
 
     out: dict[str, list[int]] = {b: [] for b in base_paths}
     for (geo, have, shard_size), bases in groups.items():
-        if len(bases) == 1:
-            out[bases[0]] = rebuild_ec_files(bases[0], geo, codec=codec,
-                                             batch_bytes=batch_bytes)
+        if len(bases) == 1 or geo.code_kind != "rs":
+            for b in bases:
+                out[b] = rebuild_ec_files(b, geo, codec=codec,
+                                          batch_bytes=batch_bytes)
             continue
         n = geo.total_shards
         missing = [i for i in range(n) if not have[i]]
-        group_codec = _codec_for(geo, codec)
+        group_codec = codec_for(geo, codec)
         inputs = {b: {i: np.memmap(b + to_ext(i), dtype=np.uint8, mode="r")
                       for i in range(n) if have[i]} for b in bases}
         for b in bases:

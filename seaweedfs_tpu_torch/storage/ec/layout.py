@@ -39,9 +39,9 @@ class EcGeometry:
     `code_kind` names the erasure code family (beyond the reference's
     fixed RS): "rs" (default), "clay" (MSR regenerating code) or "lrc"
     (local reconstruction code; parity_shards = lrc_locals local XORs +
-    globals).  Only "rs" is ported so far; the encoder and EcVolume raise
-    for the others.  Data shards are byte-identical across kinds (all
-    are systematic), so the locate math never consults the kind."""
+    globals).  "rs" and "clay" are ported; the encoder and EcVolume raise
+    for "lrc".  Data shards are byte-identical across kinds (all are
+    systematic), so the locate math never consults the kind."""
     data_shards: int = DATA_SHARDS_COUNT
     parity_shards: int = PARITY_SHARDS_COUNT
     large_block_size: int = LARGE_BLOCK_SIZE

@@ -269,7 +269,7 @@ def test_decode_to_volume_round_trips(twin_volumes, codec, ref_codec):
     v.close()
 
 
-@pytest.mark.parametrize("kind", ["clay", "lrc"])
+@pytest.mark.parametrize("kind", ["lrc"])
 def test_unported_code_kinds_raise(tmp_path, codec, kind):
     geo = EcGeometry(code_kind=kind, lrc_locals=2 if kind == "lrc" else 0)
     base = str(tmp_path / "7")
