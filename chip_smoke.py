@@ -7,7 +7,8 @@ Drives the port's erasure-coding paths on the card, RS(10,4) and Clay(10,4),
 in six phases; any mismatch or failure exits non-zero:
 
 1. Build every native source of the port (`seaweedfs_tpu_torch/csrc/`) into
-   the git-ignored `seaweedfs_tpu_torch/build/`, compilers in parallel.
+   the git-ignored `seaweedfs_tpu_torch/build/`, compilers in parallel, and
+   print each CUDA kernel's registers and spill bytes from ptxas.
 2. Every kernel against its plain torch version on the card, byte for
    byte.  The GF(2^8) kernel: RS(10,4) parity, the 4-lost decode matrix,
    RS(16,8), Cauchy RS(28,4), ragged widths, and the numpy `gf256.matmul`
@@ -19,7 +20,8 @@ in six phases; any mismatch or failure exits non-zero:
    encode and 4-lost reconstruct of [V=64, k=10, 8 MiB] (shard-major and
    volume-major entries; the volume-major entry has no caller in the
    package, and its first call here, counted from zero, is its drive);
-   Clay(10,4) fused encode of [10, 512, 256, 4096],
+   Clay(10,4) fused encode of [10, 512, 256, 4096] (and alone at the
+   on-disk path's per-call shape [10, 8, 256, 4096]),
    fused repair of [13, 512, 64, 4096], and the tiled path (elementwise
    uncouple/couple around the column-tiled entry) at the encode's shape.
 4. The RS on-disk main path on a 2 GiB volume of seeded needles (1 KiB-1
@@ -52,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -133,6 +136,44 @@ def time_cuda(torch, fn, reps: int = 7, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _kernel_name(entry: str) -> str:
+    """`name<N>` of a mangled template kernel `..<len>name ILi<N>E..`: the
+    identifier is the one whose length prefix fits (a namespace hash may
+    end in digits too); any other entry as it is."""
+    m = re.search(r"ILi(\d+)E", entry)
+    if m:
+        end = m.start()
+        for start in range(end - 1, 0, -1):
+            if entry[start].isalpha() and \
+                    entry[:start].endswith(str(end - start)):
+                return f"{entry[start:end]}<{m.group(1)}>"
+    return entry
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads", "stack"}} from
+    nvcc's `-Xptxas -v` output; template kernels named as `name<N>`."""
+    report, kernel = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+            report[kernel] = {}
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            report[kernel].update(stack=int(m.group(1)),
+                                  spill_stores=int(m.group(2)),
+                                  spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[kernel]["registers"] = int(m.group(1))
+    return report
 
 
 # -- phase 2 ---------------------------------------------------------------
@@ -371,7 +412,7 @@ def _plain_chunked(torch, tally, name, fn, n_win, step, out, what):
 
 
 def phase_clay_fleet(torch, device, card, tally, n_win=512, lost=3,
-                     reps=5):
+                     reps=5, per_call_windows=8):
     """Clay(10,4) at a fleet-sized device batch (512 windows of 1 MiB per
     shard): the fused encode, the fused repair of one lost shard, and the
     tiled path with its column-tiled product, timed with CUDA events beside
@@ -403,6 +444,23 @@ def phase_clay_fleet(torch, device, card, tally, n_win=512, lost=3,
     cols = n_win * c.alpha * w_a
     res["encode_bound_ms"], res["encode_bound_by"] = bound_ms(
         k * cols, m * cols, gf_ops(m, c.k0, cols))
+    # the kernel alone at the on-disk path's per-call shape: one 8 MiB-per-
+    # shard batch, 8 windows; launches in a row, timed together
+    per_call = data[:, :per_call_windows].contiguous()
+    res["shape_encode_per_call"] = list(per_call.shape)
+    check(torch.equal(clay_cuda.clay_fused_encode(rbits, per_call,
+                                                  **enc_args),
+                      parity[:, :per_call_windows]),
+          "clay encode at the per-call shape differs from the fleet batch")
+    runs = 20
+    res["encode_per_call_ms"] = time_cuda(
+        torch, lambda: [clay_cuda.clay_fused_encode(rbits, per_call,
+                                                    **enc_args)
+                        for _ in range(runs)], reps=reps) / runs
+    pc_cols = per_call_windows * c.alpha * w_a
+    res["encode_per_call_bound_ms"], res["encode_per_call_bound_by"] = \
+        bound_ms(k * pc_cols, m * pc_cols, gf_ops(m, c.k0, pc_cols))
+    del per_call
 
     helpers, plane, _, inv_gamma = cs.repair_parts(k, m, lost)
     shards = list(data) + list(parity)
@@ -463,6 +521,11 @@ def phase_clay_fleet(torch, device, card, tally, n_win=512, lost=3,
         print(f"[clay-fleet] {what}: kernel {res[op + '_ms']:.3f} ms, bound "
               f"{res[op + '_bound_ms']:.3f} ms ({res[op + '_bound_by']}), "
               f"plain {res[op + '_plain_ms']:.1f} ms  [{card}]")
+    print(f"[clay-fleet] fused encode at the per-call shape "
+          f"{res['shape_encode_per_call']}: kernel "
+          f"{res['encode_per_call_ms']:.4f} ms per launch, bound "
+          f"{res['encode_per_call_bound_ms']:.4f} ms "
+          f"({res['encode_per_call_bound_by']})  [{card}]")
     print(f"[clay-fleet] tiled path {res['shape_encode']}: "
           f"{res['tiled_ms']:.3f} ms (elementwise torch passes + cols "
           f"entry), equal to the fused encode  [{card}]")
@@ -898,10 +961,18 @@ def main() -> int:
     _build.build()
     build_s = time.perf_counter() - t0
     print(f"[build] {sorted(_build.SOURCES)} in {build_s:.1f} s  [{card}]")
+    ptxas = {}
     for name in ("gf2_matmul", "clay_fused"):
-        for line in _build.build_logs.get(name, "").splitlines():
-            if any(w in line for w in ("registers", "spill", "entry")):
-                print(f"[build] ptxas {name}: {line.strip()}")
+        report = ptxas_report(_build.build_logs.get(name, ""))
+        if not report:
+            print(f"[build] ptxas {name}: no report (the library was "
+                  f"loaded from an earlier build)")
+        for kernel, r in report.items():
+            ptxas[kernel] = r
+            print(f"[build] ptxas {name} {kernel}: {r.get('registers')} "
+                  f"registers, {r.get('spill_stores')} B spill stores, "
+                  f"{r.get('spill_loads')} B spill loads, {r.get('stack')} "
+                  f"B stack frame")
 
     # 2. kernel vs plain
     tally = Tally()
@@ -984,7 +1055,8 @@ def main() -> int:
               cf["repair_ms"], cf["repair_plain_ms"], cf["repair_bound_ms"],
               cf["repair_bound_by"]),
     ]}
-    details = {"card": card, "build_s": build_s, "fleet": fleet,
+    details = {"card": card, "build_s": build_s, "ptxas": ptxas,
+               "fleet": fleet,
                "clay_fleet": clay_fleet, "disk": disk,
                "fleet_disk": fleet_disk, "profile": profiled,
                "clay_disk": clay_disk, "clay_fleet_disk": clay_fleet_disk,

@@ -24,39 +24,60 @@
 // q-1 out-of-plane cells C = g^-1*(U ^ C[helper]).
 //
 // Both take the matrix as its plane-major bit form [8q, 8k0] (as the
-// Pallas kernels do; row b*q + r, column c holds bit b of M[r, c]) and
-// every Clay parameter (k, t, g, det_inv / g^-1, lost) at run time, so one
-// build serves every geometry and loss.  The TPU's lane tiling (w_a a
-// multiple of the 128-lane column tile, clay_fused_cb_for) is not carried
-// over: any w_a >= 1 runs, the ragged column edge masked byte by byte.
+// Pallas kernels do; row b*q + r, column j*k0 + c holds bit b of
+// M[r, c]*2^j) and every Clay parameter (k, t, g, det_inv / g^-1, lost) at
+// run time, so one build serves every geometry and loss.  The TPU's lane
+// tiling (w_a a multiple of the 128-lane column tile, clay_fused_cb_for) is
+// not carried over: any w_a >= 1 runs, the ragged column edge masked byte
+// by byte.
 //
 // What bounds them: each moves its inputs once and its outputs once —
 // encode (k + q)*n_win*alpha*w_a bytes, repair ((k+q-1)*beta + alpha)*
-// n_win*w_a — so on an H100 the floor is HBM bandwidth (3.35 TB/s).  The
-// design keeps the whole transform out of device memory, as the TPU kernel
+// n_win*w_a — so on an H100 the floor is HBM bandwidth (3.35 TB/s): for
+// the encode at the fleet shape [10, 512, 256, 4096], 7.5 GB in 2.244 ms.
+// Both keep the whole transform out of device memory, as the TPU kernel
 // keeps it in VMEM: the uncoupled operand, the virtual zero nodes and the
-// uncoupled parity live only in registers.  The arithmetic runs on the
-// integer ALUs on packed 4-byte words: a byte constant c times a word w is
-// XOR_j (lane mask of bit j of w) & (c*2^j replicated in 4 lanes), and the
-// R terms sit in shared memory in that replicated form.  This first design
-// is simple rather than fast (a word per thread, companions re-read through
-// L1/L2); making it meet the bound is later work.
+// uncoupled parity never reach HBM.
 //
-// Encode: one thread per (window, class of the low digits z_0..z_{t-2},
-// 4-byte column word).  The q layers of a class (z_{t-1} = 0..q-1) times
-// the q parity nodes form a group the coupling step keeps closed (the
-// parity row's companions differ only in digit t-1), so a thread holds the
-// group's q*q parity words in registers and couples them without leaving
-// the thread.
+// Encode: bit-sliced, as gf2_matmul.cu (bitslice.cuh).  A warp owns one
+// (window, layer, 1024-column tile); each thread reads 32 byte columns of a
+// row as two 16-byte loads and transposes them into 8 plane words (word j
+// = bit j of the 32 bytes).  In the plane domain a byte constant c is a
+// fixed GF(2)-linear map, out plane b = XOR_j in plane j where bit b of
+// c*2^j is set, so:
+// - uncouple: U = C ^ G(C[companion]), the companion's 32 bytes read again
+//   (through L2: blocks walk the grid in window order, so a window's
+//   k*alpha*w_a bytes stay resident while its layers are encoded);
+// - layer product: acc[o] ^= U[j] & mask[c, j, o], one LOP3 per (input
+//   plane, output plane) pair over the 8k0 input planes, into 8q
+//   accumulator planes (o = b*q + p);
+// - couple: the parity row pairs (node p, layer z) with (node z_{t-1},
+//   layer z with z_{t-1} := p).  A block holds the q layers of one class
+//   (layers that differ only in z_{t-1}) for the same tiles, a warp each,
+//   so the partner's planes come through shared memory after one barrier;
+//   C = D(P ^ G(P')) in the plane domain (C = P on the diagonal), then the
+//   transpose back and two 16-byte stores.
+// The masks of R and the maps G (gamma) and D (det_inv) are expanded once
+// per block into shared memory as 0 / ~0 words and read as warp-broadcast
+// 16-byte loads; a thread issues the next cell's row loads before this
+// cell's network, so they fly under it.  What still keeps it above half its bound is the LOP3
+// network itself: 8q*8k0 LOP3 per 32 columns of a layer (3,072 at
+// Clay(10,4)), about 3.5 ms at the fleet shape at the integer ALUs' rate,
+// plus the transposes and the companion maps.
 //
-// Repair: one thread per (window, plane layer, column word).  The known
-// rows' companions stay inside the plane; the thread writes its layer's
-// in-plane cell and the q-1 cells the back-substitution reaches.
+// Repair: one thread per (window, plane layer, 4-byte column word), on
+// packed words: a byte constant c times a word w is XOR_j (lane mask of bit
+// j of w) & (c*2^j replicated in 4 lanes), the R_r terms replicated in
+// shared memory.  The known rows' companions stay inside the plane; the
+// thread writes its layer's in-plane cell and the q-1 cells the
+// back-substitution reaches.
 //
 // Plain C interface for ctypes: each launch returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bitslice.cuh"
 
 namespace {
 
@@ -122,7 +143,7 @@ __device__ __forceinline__ void store_word(uint8_t* __restrict__ row,
   }
 }
 
-// Shared-memory prologue common to both kernels: pw[y] = Q^y, and the
+// Shared-memory prologue of the repair kernel: pw[y] = Q^y, and the
 // replicated terms rterm[(i*8 + j)*Q + p] = (M[p, i] * 2^j) x 4 lanes of
 // the [Q, k0] matrix given as its plane-major bits [8Q, 8k0].
 template <int Q>
@@ -146,80 +167,190 @@ __device__ void load_matrix_terms(const uint8_t* __restrict__ mbits, int k0,
   __syncthreads();
 }
 
+// -- encode -------------------------------------------------------------------
+
+// Block of the encode for parity count Q: a warp per (layer of the class,
+// warp tile), kTiles tiles side by side.
 template <int Q>
-__global__ void __launch_bounds__(kThreads)
+struct EncodeShape {
+  static constexpr int kTiles = 8 / Q;
+  static constexpr int kThreads = 32 * Q * kTiles;
+  static constexpr int kOut = 8 * Q;   // accumulator planes, o = b*Q + p
+};
+
+// out[b] ^= XOR_j in[j] & map[j][b]: the plane form of a byte constant c
+// times the 32 bytes of `in`, map[j] holding bit b of c*2^j as 0 / ~0 (two
+// uint4 per j, loaded warp-broadcast).
+__device__ __forceinline__ void gf_const_planes(const uint32_t in[8],
+                                                const uint4* __restrict__ map,
+                                                uint32_t out[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    const uint4 lo = map[2 * j], hi = map[2 * j + 1];
+    out[0] ^= in[j] & lo.x;
+    out[1] ^= in[j] & lo.y;
+    out[2] ^= in[j] & lo.z;
+    out[3] ^= in[j] & lo.w;
+    out[4] ^= in[j] & hi.x;
+    out[5] ^= in[j] & hi.y;
+    out[6] ^= in[j] & hi.z;
+    out[7] ^= in[j] & hi.w;
+  }
+}
+
+// Dynamic shared memory of the encode: masks [k0][8][8q] | maps [G, D][8][8]
+// | exchange [tiles][q (layer digit)][q (node)][8 planes][32 lanes], words.
+size_t encode_smem_bytes(int q, int t) {
+  const size_t k0 = static_cast<size_t>(q) * (t - 1);
+  const size_t tiles = 8 / q;
+  return (k0 * 8 * 8 * q + 2 * 64 + tiles * q * q * 8 * 32) *
+         sizeof(uint32_t);
+}
+
+template <int Q>
+__global__ void __launch_bounds__(EncodeShape<Q>::kThreads)
 clay_encode_kernel(const uint8_t* __restrict__ rbits,
                    const uint8_t* __restrict__ data, uint8_t* __restrict__ out,
                    int k, int t, int gamma, int det_inv, long long n_win,
                    long long w_a, int aligned) {
-  extern __shared__ uint32_t rterm[];
+  using S = EncodeShape<Q>;
+  constexpr int kOut = S::kOut, kO4 = kOut / 4;
+  extern __shared__ uint4 smem4[];
   __shared__ int pw[kMaxT + 1];
   const int k0 = Q * (t - 1);
-  load_matrix_terms<Q>(rbits, k0, t, rterm, pw);
-  uint32_t gt[8], dt[8];
-  const_terms(static_cast<uint32_t>(gamma), gt);
-  const_terms(static_cast<uint32_t>(det_inv), dt);
-
-  const int beta = pw[t - 1];
-  const long long alpha = pw[t];
-  const long long nwords = (w_a + 3) / 4;
-  const long long total = n_win * beta * nwords;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       g < total; g += stride) {
-    const long long c = (g % nwords) * 4;
-    const long long rest = g / nwords;
-    const int s = static_cast<int>(rest % beta);   // digits z_0..z_{t-2}
-    const long long win = rest / beta;
-    uint32_t par[Q][Q];   // [z_{t-1}][parity node]
-#pragma unroll
-    for (int a = 0; a < Q; a++) {
-#pragma unroll
-      for (int p = 0; p < Q; p++) par[a][p] = 0;
-    }
-#pragma unroll
-    for (int zt = 0; zt < Q; zt++) {
-      const int z = s + zt * beta;
-      for (int i = 0; i < k0; i++) {
-        const int x = i % Q, y = i / Q;
-        const int zy = (s / pw[y]) % Q;   // y < t-1: the digit lies in s
-        uint32_t u = 0;
-        if (i < k) {   // virtual nodes store zeros (their U need not be 0)
-          u = load_word(data + ((i * n_win + win) * alpha + z) * w_a, c,
-                        w_a, aligned);
-        }
-        const int comp = y * Q + zy;
-        if (zy != x && comp < k) {
-          const int zc = z + (x - zy) * pw[y];
-          u ^= gf_mul_word(
-              load_word(data + ((comp * n_win + win) * alpha + zc) * w_a, c,
-                        w_a, aligned),
-              gt);
-        }
-        const uint32_t* rt = rterm + i * 8 * Q;
-#pragma unroll
-        for (int j = 0; j < 8; j++) {
-          const uint32_t m = lane_mask(u, j);
-#pragma unroll
-          for (int p = 0; p < Q; p++) par[zt][p] ^= m & rt[j * Q + p];
-        }
-      }
-    }
-    // couple the parity row: (node p, layer zt) pairs with (node zt, layer p)
-#pragma unroll
-    for (int zt = 0; zt < Q; zt++) {
-#pragma unroll
-      for (int p = 0; p < Q; p++) {
-        uint32_t v = par[zt][p];
-        if (zt != p) v = gf_mul_word(v ^ gf_mul_word(par[p][zt], gt), dt);
-        store_word(out + ((p * n_win + win) * alpha + s + zt * beta) * w_a,
-                   c, w_a, aligned, v);
-      }
+  uint32_t* masks = reinterpret_cast<uint32_t*>(smem4);
+  const uint4* gmap = smem4 + k0 * 8 * kO4;
+  const uint4* dmap = gmap + 16;
+  uint32_t* ex = reinterpret_cast<uint32_t*>(smem4 + k0 * 8 * kO4 + 32);
+  if (threadIdx.x == 0) {
+    int p = 1;
+    for (int y = 0; y <= t; y++) {
+      pw[y] = p;
+      p *= Q;
     }
   }
-}
+  // mask of (input cell c, input plane j) for output plane o = b*Q + p:
+  // bit b of R[p, c] * 2^j, i.e. rbits[o, j*k0 + c]
+  for (int s = threadIdx.x; s < k0 * 8 * kOut; s += blockDim.x) {
+    const int o = s % kOut, cj = s / kOut;
+    masks[s] = rbits[o * (8 * k0) + (cj & 7) * k0 + (cj >> 3)] ? ~0u : 0u;
+  }
+  for (int s = threadIdx.x; s < 128; s += blockDim.x) {
+    const uint32_t c = static_cast<uint32_t>(s < 64 ? gamma : det_inv);
+    const int j = (s >> 3) & 7, b = s & 7;
+    masks[k0 * 8 * kOut + s] = (gf_mul_byte(c, 1u << j) >> b) & 1u ? ~0u : 0u;
+  }
+  __syncthreads();
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int zt = warp % Q, slot = warp / Q;   // layer digit z_{t-1}, tile
+  const int beta = pw[t - 1];
+  const long long alpha = pw[t];
+  const long long tiles = (w_a + kTileCols - 1) / kTileCols;
+  const long long groups = (tiles + S::kTiles - 1) / S::kTiles;
+  const long long items = n_win * beta * groups;
+  uint32_t* xs = ex + slot * (Q * Q * 8 * 32) + lane;   // [zt][p][b], x32
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const long long tile = (it % groups) * S::kTiles + slot;
+    const long long rest = it / groups;
+    const int s = static_cast<int>(rest % beta);   // digits z_0..z_{t-2}
+    const long long win = rest / beta;
+    const int z = s + zt * beta;
+    const bool active = tile < tiles;
+    const long long c0 = tile * kTileCols + 16 * lane;
+    const bool vec = aligned && c0 + 528 <= w_a;
+    uint32_t acc[kOut];
+#pragma unroll
+    for (int o = 0; o < kOut; o++) acc[o] = 0;
+    if (active) {
+      // the rows of cell i = y*Q + x: its own (none for a virtual node) and
+      // its companion's (none on the diagonal or for a virtual companion)
+      auto rows = [&](int i, const uint8_t*& own, const uint8_t*& cmp) {
+        const int y = i / Q, x = i % Q;
+        const int zy = (s / pw[y]) % Q;   // y < t-1: the digit lies in s
+        const int comp = y * Q + zy;
+        own = i < k ? data + ((i * n_win + win) * alpha + z) * w_a : nullptr;
+        cmp = zy != x && comp < k
+                  ? data + ((comp * n_win + win) * alpha + z +
+                            (x - zy) * pw[y]) * w_a
+                  : nullptr;
+      };
+      const uint8_t *own, *cmp;
+      uint32_t ru[8], rc[8] = {};   // raw words of the cell in flight
+      rows(0, own, cmp);
+      if (own) load_row(own, c0, w_a, vec, ru);
+      if (cmp) load_row(cmp, c0, w_a, vec, rc);
+#pragma unroll 1
+      for (int i = 0; i < k0; i++) {
+        const bool has_own = own != nullptr, has_cmp = cmp != nullptr;
+        uint32_t u[8], cw[8];
+#pragma unroll
+        for (int b = 0; b < 8; b++) {
+          u[b] = has_own ? ru[b] : 0u;   // virtual nodes store zeros
+          cw[b] = rc[b];
+        }
+        if (i + 1 < k0) {   // the next cell's loads fly under this network
+          rows(i + 1, own, cmp);
+          if (own) load_row(own, c0, w_a, vec, ru);
+          if (cmp) load_row(cmp, c0, w_a, vec, rc);
+        }
+        if (!has_own && !has_cmp) continue;   // U = 0: no term
+        if (has_own) transpose8(u);
+        if (has_cmp) {   // U = C ^ G(C[companion]); a virtual node's U
+          transpose8(cw);   // need not be 0
+          gf_const_planes(cw, gmap, u);
+        }
+        const uint4* mrow = smem4 + i * 8 * kO4;   // masks of cell i
+#pragma unroll
+        for (int j = 0; j < 8; j++) {
+#pragma unroll
+          for (int o4 = 0; o4 < kO4; o4++) {
+            const uint4 m = mrow[j * kO4 + o4];
+            acc[4 * o4 + 0] ^= u[j] & m.x;
+            acc[4 * o4 + 1] ^= u[j] & m.y;
+            acc[4 * o4 + 2] ^= u[j] & m.z;
+            acc[4 * o4 + 3] ^= u[j] & m.w;
+          }
+        }
+      }
+      // this layer's uncoupled parity planes, for the partners' couple
+#pragma unroll
+      for (int p = 0; p < Q; p++) {
+#pragma unroll
+        for (int b = 0; b < 8; b++) {
+          xs[((zt * Q + p) * 8 + b) * 32] = acc[b * Q + p];
+        }
+      }
+    }
+    __syncthreads();
+    if (active) {
+      // couple the parity row: (node p, digit zt) pairs with (node zt,
+      // digit p); C = D(P ^ G(P')) off the diagonal, C = P on it
+#pragma unroll
+      for (int p = 0; p < Q; p++) {
+        uint32_t w[8];
+        if (p == zt) {
+#pragma unroll
+          for (int b = 0; b < 8; b++) w[b] = acc[b * Q + p];
+        } else {
+          uint32_t v[8], e[8];
+#pragma unroll
+          for (int b = 0; b < 8; b++) {
+            v[b] = acc[b * Q + p];
+            e[b] = xs[((p * Q + zt) * 8 + b) * 32];
+            w[b] = 0;
+          }
+          gf_const_planes(e, gmap, v);
+          gf_const_planes(v, dmap, w);
+        }
+        transpose8(w);
+        store_row(out + ((p * n_win + win) * alpha + z) * w_a, c0, w_a, vec,
+                  w);
+      }
+    }
+    __syncthreads();   // the exchange is reused by the next item
+  }
+}
 template <int Q>
 __global__ void __launch_bounds__(kThreads)
 clay_repair_kernel(const uint8_t* __restrict__ rbits,
@@ -309,10 +440,11 @@ clay_repair_kernel(const uint8_t* __restrict__ rbits,
   }
 }
 
-size_t smem_bytes(int q, int t, bool repair) {
+// Dynamic shared memory of the repair: the replicated R_r terms and hidx.
+size_t repair_smem_bytes(int q, int t) {
   const size_t k0 = static_cast<size_t>(q) * (t - 1);
   return k0 * 8 * q * sizeof(uint32_t) +
-         (repair ? static_cast<size_t>(q) * t * sizeof(int) : 0);
+         static_cast<size_t>(q) * t * sizeof(int);
 }
 
 long long grid_for(long long total, int sm_count) {
@@ -339,18 +471,30 @@ long long ipow(int q, int e) {
   return p;
 }
 
+// One block per resident slot: the blocks walk the (window, class, tile
+// group) items in order, so the windows in flight stay in L2.
 template <int Q>
 int launch_encode(const uint8_t* rbits, int k, int t, int gamma, int det_inv,
                   const uint8_t* data, uint8_t* out, long long n_win,
                   long long w_a, int aligned, int sm_count,
                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(Q, t, false);
+  using S = EncodeShape<Q>;
+  const size_t smem = encode_smem_bytes(Q, t);
   int rc = prepare(clay_encode_kernel<Q>, smem);
   if (rc) return rc;
-  const long long total = n_win * ipow(Q, t - 1) * ((w_a + 3) / 4);
-  clay_encode_kernel<Q><<<static_cast<unsigned>(grid_for(total, sm_count)),
-                          kThreads, smem, stream>>>(
-      rbits, data, out, k, t, gamma, det_inv, n_win, w_a, aligned);
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, clay_encode_kernel<Q>, S::kThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles = (w_a + kTileCols - 1) / kTileCols;
+  const long long items =
+      n_win * ipow(Q, t - 1) * ((tiles + S::kTiles - 1) / S::kTiles);
+  long long blocks =
+      static_cast<long long>(sm_count) * (per_sm > 0 ? per_sm : 1);
+  if (blocks > items) blocks = items;
+  clay_encode_kernel<Q><<<static_cast<unsigned>(blocks), S::kThreads, smem,
+                          stream>>>(rbits, data, out, k, t, gamma, det_inv,
+                                    n_win, w_a, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -359,7 +503,7 @@ int launch_repair(const uint8_t* rbits, int k, int t, int lost, int gamma,
                   int inv_gamma, const uint8_t* x4, uint8_t* out,
                   long long n_win, long long w_a, int aligned, int sm_count,
                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(Q, t, true);
+  const size_t smem = repair_smem_bytes(Q, t);
   int rc = prepare(clay_repair_kernel<Q>, smem);
   if (rc) return rc;
   const long long total = n_win * ipow(Q, t - 1) * ((w_a + 3) / 4);
@@ -372,6 +516,11 @@ int launch_repair(const uint8_t* rbits, int k, int t, int lost, int gamma,
 int aligned_for(const void* a, const void* b, long long w_a) {
   return (w_a % 4 == 0) && (reinterpret_cast<uintptr_t>(a) % 4 == 0) &&
          (reinterpret_cast<uintptr_t>(b) % 4 == 0);
+}
+
+int aligned16_for(const void* a, const void* b, long long w_a) {
+  return (w_a % 16 == 0) && (reinterpret_cast<uintptr_t>(a) % 16 == 0) &&
+         (reinterpret_cast<uintptr_t>(b) % 16 == 0);
 }
 
 }  // namespace
@@ -388,7 +537,7 @@ int clay_fused_encode(const uint8_t* rbits, int q, int k, int t, int gamma,
   if (n_win == 0 || w_a == 0) return 0;
   if (t < 2 || t > kMaxT) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int al = aligned_for(data, out, w_a);
+  const int al = aligned16_for(data, out, w_a);
   switch (q) {
     case 2: return launch_encode<2>(rbits, k, t, gamma, det_inv, data, out, n_win, w_a, al, sm_count, s);
     case 3: return launch_encode<3>(rbits, k, t, gamma, det_inv, data, out, n_win, w_a, al, sm_count, s);
@@ -425,7 +574,8 @@ int clay_fused_repair(const uint8_t* rbits, int q, int k, int t, int lost,
 
 // Dynamic shared memory one launch needs: the wrapper's budget check.
 long long clay_fused_smem_bytes(int q, int t, int repair) {
-  return static_cast<long long>(smem_bytes(q, t, repair != 0));
+  return static_cast<long long>(repair ? repair_smem_bytes(q, t)
+                                       : encode_smem_bytes(q, t));
 }
 
 const char* clay_error_string(int code) {

@@ -11,14 +11,17 @@ loaded with ctypes (no PyTorch headers, so a build takes seconds):
   storage/crc.py.
 
 Libraries go to `seaweedfs_tpu_torch/build/` (git-ignored), named by a hash
-of the source and the command, so an edited source rebuilds and an
-unchanged one loads from the previous build.  `build()` starts every
-compiler it needs at once and waits for all of them.
+of the source, the headers it may include (`csrc/*.cuh`, e.g. the
+bit-slicing helpers both CUDA sources share) and the command, so an edited
+source or header rebuilds and an unchanged one loads from the previous
+build.  `build()` starts every compiler it needs at once and waits for all
+of them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -69,10 +72,16 @@ def _command(name: str, src: str, out: str) -> list[str]:
 
 def _target(name: str) -> tuple[str, list[str]]:
     """(library path, compile command) for one source; the path carries a
-    hash of the source bytes and the command."""
+    hash of the source bytes, of every header `csrc/*.cuh` a CUDA source
+    may include, and of the command."""
     src = os.path.join(CSRC, SOURCES[name])
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read())
+    if src.endswith(".cu"):
+        for header in sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+            with open(header, "rb") as f:
+                digest.update(os.path.basename(header).encode() + b"\0"
+                              + f.read())
     cmd = _command(name, src, "{out}")
     digest.update(" ".join(os.path.basename(c) for c in cmd).encode())
     so = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
