@@ -14,16 +14,20 @@ in six phases; any mismatch or failure exits non-zero:
    RS(16,8), Cauchy RS(28,4), ragged widths, and the numpy `gf256.matmul`
    tables on a 64 KiB slice; its column-tiled and volume-major entries.
    The fused Clay kernels: encode at Clay(10,4), (6,3), (4,2) and at
-   ragged window widths; repair of every lost shard 0..13 of Clay(10,4).
+   ragged window widths (4099, 13, and 1600, whose second tile mixes the
+   16-byte and the guarded byte path in one warp); repair of every lost
+   shard 0..13 of Clay(10,4), and of shards 0, 9, 10, 13 at the ragged
+   widths, each also held against the encoded shard.
 3. Fleet-sized device batches timed with CUDA events (median after
    warm-up) beside their bounds and held against the plain versions: RS
    encode and 4-lost reconstruct of [V=64, k=10, 8 MiB] (shard-major and
    volume-major entries; the volume-major entry has no caller in the
    package, and its first call here, counted from zero, is its drive);
-   Clay(10,4) fused encode of [10, 512, 256, 4096] (and alone at the
-   on-disk path's per-call shape [10, 8, 256, 4096]),
-   fused repair of [13, 512, 64, 4096], and the tiled path (elementwise
-   uncouple/couple around the column-tiled entry) at the encode's shape.
+   Clay(10,4) fused encode of [10, 512, 256, 4096] and fused repair of
+   [13, 512, 64, 4096] (each also alone at the on-disk path's per-call
+   shape, [10, 8, 256, 4096] and [13, 8, 64, 4096]), and the tiled path
+   (elementwise uncouple/couple around the column-tiled entry) at the
+   encode's shape.
 4. The RS on-disk main path on a 2 GiB volume of seeded needles (1 KiB-1
    MiB): encode_volume_to_ec, rebuild of 4 deleted shards (byte-identical),
    1,000 degraded needle reads with 2 data shards gone, decode back to a
@@ -361,7 +365,8 @@ def phase_clay_kernels_vs_plain(torch, device, card, tally, n_win=8,
               f"from plain  [{card}]")
 
     cases = [((10, 4), n_win, w_a), ((6, 3), n_win, w_a),
-             ((4, 2), n_win, w_a), ((10, 4), 3, w_a + 3), ((10, 4), 2, 13)]
+             ((4, 2), n_win, w_a), ((10, 4), 3, w_a + 3), ((10, 4), 2, 13),
+             ((10, 4), 2, 1600)]
     full_w_a = w_a
     for (k, m), n_win, w_a in cases:
         c = code(k, m)
@@ -473,6 +478,20 @@ def phase_clay_fleet(torch, device, card, tally, n_win=512, lost=3,
         torch, lambda: cs.repair_device_fused(k, m, lost, x4), reps=reps)
     rp = cs.solve_planes(k, m, lost, device)
     rep_args = dict(_clay_args(c), k=k, lost=lost, inv_gamma=inv_gamma)
+    # alone at the per-call shape too, as the encode above
+    per_call = x4[:, :per_call_windows].contiguous()
+    res["shape_repair_per_call"] = list(per_call.shape)
+    check(torch.equal(clay_cuda.clay_fused_repair(rp, per_call, **rep_args),
+                      rebuilt[:per_call_windows]),
+          "clay repair at the per-call shape differs from the fleet batch")
+    res["repair_per_call_ms"] = time_cuda(
+        torch, lambda: [clay_cuda.clay_fused_repair(rp, per_call, **rep_args)
+                        for _ in range(runs)], reps=reps) / runs
+    pc_pcols = per_call_windows * c.beta * w_a
+    res["repair_per_call_bound_ms"], res["repair_per_call_bound_by"] = \
+        bound_ms((k + m - 1) * pc_pcols, per_call_windows * c.alpha * w_a,
+                 gf_ops(m, c.k0, pc_pcols))
+    del per_call
     res["repair_plain_ms"] = _plain_chunked(
         torch, tally, "clay_fused_repair",
         lambda a, b: clay_cuda.clay_fused_repair_plain(
@@ -521,11 +540,12 @@ def phase_clay_fleet(torch, device, card, tally, n_win=512, lost=3,
         print(f"[clay-fleet] {what}: kernel {res[op + '_ms']:.3f} ms, bound "
               f"{res[op + '_bound_ms']:.3f} ms ({res[op + '_bound_by']}), "
               f"plain {res[op + '_plain_ms']:.1f} ms  [{card}]")
-    print(f"[clay-fleet] fused encode at the per-call shape "
-          f"{res['shape_encode_per_call']}: kernel "
-          f"{res['encode_per_call_ms']:.4f} ms per launch, bound "
-          f"{res['encode_per_call_bound_ms']:.4f} ms "
-          f"({res['encode_per_call_bound_by']})  [{card}]")
+    for op in ("encode", "repair"):
+        print(f"[clay-fleet] fused {op} at the per-call shape "
+              f"{res['shape_' + op + '_per_call']}: kernel "
+              f"{res[op + '_per_call_ms']:.4f} ms per launch, bound "
+              f"{res[op + '_per_call_bound_ms']:.4f} ms "
+              f"({res[op + '_per_call_bound_by']})  [{card}]")
     print(f"[clay-fleet] tiled path {res['shape_encode']}: "
           f"{res['tiled_ms']:.3f} ms (elementwise torch passes + cols "
           f"entry), equal to the fused encode  [{card}]")

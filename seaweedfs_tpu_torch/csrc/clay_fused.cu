@@ -33,11 +33,12 @@
 //
 // What bounds them: each moves its inputs once and its outputs once —
 // encode (k + q)*n_win*alpha*w_a bytes, repair ((k+q-1)*beta + alpha)*
-// n_win*w_a — so on an H100 the floor is HBM bandwidth (3.35 TB/s): for
-// the encode at the fleet shape [10, 512, 256, 4096], 7.5 GB in 2.244 ms.
-// Both keep the whole transform out of device memory, as the TPU kernel
-// keeps it in VMEM: the uncoupled operand, the virtual zero nodes and the
-// uncoupled parity never reach HBM.
+// n_win*w_a — so on an H100 the floor is HBM bandwidth (3.35 TB/s): at the
+// fleet shapes, the encode [10, 512, 256, 4096] moves 7.5 GB in 2.244 ms,
+// the repair [13, 512, 64, 4096] 2.28 GB in 0.681 ms.  Both keep the whole
+// transform out of device memory, as the TPU kernels keep it in VMEM: the
+// uncoupled operand, the virtual zero nodes and the uncoupled parity (the
+// solved row) never reach HBM.
 //
 // Encode: bit-sliced, as gf2_matmul.cu (bitslice.cuh).  A warp owns one
 // (window, layer, 1024-column tile); each thread reads 32 byte columns of a
@@ -65,12 +66,27 @@
 // Clay(10,4)), about 3.5 ms at the fleet shape at the integer ALUs' rate,
 // plus the transposes and the companion maps.
 //
-// Repair: one thread per (window, plane layer, 4-byte column word), on
-// packed words: a byte constant c times a word w is XOR_j (lane mask of bit
-// j of w) & (c*2^j replicated in 4 lanes), the R_r terms replicated in
-// shared memory.  The known rows' companions stay inside the plane; the
-// thread writes its layer's in-plane cell and the q-1 cells the
-// back-substitution reaches.
+// Repair: bit-sliced the same way.  A warp owns one (window, plane rank r,
+// 1024-column tile); a block's 8 warps take 8 consecutive items and walk
+// the grid in window order, so a window's helper rows (13*64*4096 bytes at
+// the default geometry) stay in L2 for the companion re-reads.  No warp
+// reads another's results: there is no barrier in the item loop.
+// - uncouple the k0 known cells (every node outside the lost row y0): own
+//   row x4[helper, win, r] (0 for a virtual node), U ^= G(companion row),
+//   the companion being in the plane too, at rank r with digit y moved to
+//   x; a cell with neither row adds no term and is skipped;
+// - row solve: acc[o] ^= U[j] & mask[i, j, o] over the 8k0 known planes
+//   into the 8q planes (o = b*q + p) of the lost row's U, the masks of R_r
+//   expanded once per block as for the encode;
+// - outputs: the in-plane cell x0 is U itself; each other x reads its
+//   helper's row at rank r, C = IG(U ^ C[helper]) with IG the inv_gamma
+//   map, stored at layer z with digit y0 := x.
+// What keeps it above its bound is, as for the encode, integer work: the
+// LOP3 network, 8q*8k0 = 3,072 LOP3 and 768 broadcast 16-byte shared loads
+// per 32 columns of a plane layer at Clay(10,4), plus about 2,800 ops of
+// transposes (one per row read and per row written) and maps.  At the
+// integer ALUs' rate (64 lanes per SM per clock) that is about 0.9 ms of
+// network and 1.9 ms in all at the fleet shape.
 //
 // Plain C interface for ctypes: each launch returns cudaGetLastError().
 
@@ -93,78 +109,6 @@ __device__ __forceinline__ uint32_t gf_mul_byte(uint32_t a, uint32_t b) {
     if (a & 0x100u) a ^= 0x11Du;
   }
   return r;
-}
-
-// 0xFF in every byte lane whose bit j is set, 0x00 elsewhere
-__device__ __forceinline__ uint32_t lane_mask(uint32_t w, int j) {
-  return ((w >> j) & 0x01010101u) * 0xFFu;
-}
-
-// terms[j] = (c * 2^j) in all four byte lanes
-__device__ __forceinline__ void const_terms(uint32_t c, uint32_t terms[8]) {
-#pragma unroll
-  for (int j = 0; j < 8; j++) terms[j] = gf_mul_byte(c, 1u << j) * 0x01010101u;
-}
-
-// c * w in every byte lane of w
-__device__ __forceinline__ uint32_t gf_mul_word(uint32_t w,
-                                                const uint32_t terms[8]) {
-  uint32_t acc = 0;
-#pragma unroll
-  for (int j = 0; j < 8; j++) acc ^= lane_mask(w, j) & terms[j];
-  return acc;
-}
-
-// Bytes [c, c+4) of a row of n bytes; bytes at or past n read as 0.
-__device__ __forceinline__ uint32_t load_word(const uint8_t* __restrict__ row,
-                                              long long c, long long n,
-                                              bool aligned) {
-  if (aligned && c + 4 <= n) {
-    return __ldg(reinterpret_cast<const uint32_t*>(row + c));
-  }
-  uint32_t v = 0;
-#pragma unroll
-  for (int l = 0; l < 4; l++) {
-    if (c + l < n) v |= static_cast<uint32_t>(__ldg(row + c + l)) << (8 * l);
-  }
-  return v;
-}
-
-__device__ __forceinline__ void store_word(uint8_t* __restrict__ row,
-                                           long long c, long long n,
-                                           bool aligned, uint32_t v) {
-  if (aligned && c + 4 <= n) {
-    *reinterpret_cast<uint32_t*>(row + c) = v;
-    return;
-  }
-#pragma unroll
-  for (int l = 0; l < 4; l++) {
-    if (c + l < n) row[c + l] = static_cast<uint8_t>(v >> (8 * l));
-  }
-}
-
-// Shared-memory prologue of the repair kernel: pw[y] = Q^y, and the
-// replicated terms rterm[(i*8 + j)*Q + p] = (M[p, i] * 2^j) x 4 lanes of
-// the [Q, k0] matrix given as its plane-major bits [8Q, 8k0].
-template <int Q>
-__device__ void load_matrix_terms(const uint8_t* __restrict__ mbits, int k0,
-                                  int t, uint32_t* rterm, int* pw) {
-  if (threadIdx.x == 0) {
-    int p = 1;
-    for (int y = 0; y <= t; y++) {
-      pw[y] = p;
-      p *= Q;
-    }
-  }
-  for (int s = threadIdx.x; s < k0 * 8 * Q; s += blockDim.x) {
-    const int p = s % Q, j = (s / Q) % 8, i = s / (8 * Q);
-    uint32_t r = 0;
-    for (int b = 0; b < 8; b++) {
-      r |= static_cast<uint32_t>(mbits[(b * Q + p) * (8 * k0) + i] & 1u) << b;
-    }
-    rterm[s] = gf_mul_byte(r, 1u << j) * 0x01010101u;
-  }
-  __syncthreads();
 }
 
 // -- encode -------------------------------------------------------------------
@@ -351,107 +295,165 @@ clay_encode_kernel(const uint8_t* __restrict__ rbits,
     __syncthreads();   // the exchange is reused by the next item
   }
 }
+
+// -- repair -------------------------------------------------------------------
+
+// Dynamic shared memory of the repair: masks [k0][8][8q] | maps [G, IG][8][8]
+// words | hidx [n0] ints.
+size_t repair_smem_bytes(int q, int t) {
+  const size_t k0 = static_cast<size_t>(q) * (t - 1);
+  return (k0 * 8 * 8 * q + 2 * 64) * sizeof(uint32_t) +
+         static_cast<size_t>(q) * t * sizeof(int);
+}
+
 template <int Q>
 __global__ void __launch_bounds__(kThreads)
 clay_repair_kernel(const uint8_t* __restrict__ rbits,
                    const uint8_t* __restrict__ x4, uint8_t* __restrict__ out,
                    int k, int t, int lost, int gamma, int inv_gamma,
                    long long n_win, long long w_a, int aligned) {
-  extern __shared__ uint32_t rterm[];
+  constexpr int kOut = 8 * Q, kO4 = kOut / 4;   // planes o = b*Q + p
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ uint4 smem4[];
   __shared__ int pw[kMaxT + 1];
   const int k0 = Q * (t - 1);
   const int n0 = Q * t;
-  int* hidx = reinterpret_cast<int*>(rterm + k0 * 8 * Q);   // [n0]
+  uint32_t* masks = reinterpret_cast<uint32_t*>(smem4);
+  const uint4* gmap = smem4 + k0 * 8 * kO4;
+  const uint4* imap = gmap + 16;
+  int* hidx = reinterpret_cast<int*>(smem4 + k0 * 8 * kO4 + 32);
   const int lost_int = lost < k ? lost : n0 - Q + (lost - k);
+  if (threadIdx.x == 0) {
+    int p = 1;
+    for (int y = 0; y <= t; y++) {
+      pw[y] = p;
+      p *= Q;
+    }
+  }
   for (int n = threadIdx.x; n < n0; n += blockDim.x) {
     // internal node -> helper row (external ids ascending, lost skipped);
     // -1 for virtual nodes and the lost node
-    int ext = n < k ? n : (n >= n0 - Q ? k + (n - (n0 - Q)) : -1);
+    const int ext = n < k ? n : (n >= n0 - Q ? k + (n - (n0 - Q)) : -1);
     hidx[n] = (ext < 0 || n == lost_int) ? -1 : (ext < lost ? ext : ext - 1);
   }
-  load_matrix_terms<Q>(rbits, k0, t, rterm, pw);
-  uint32_t gt[8], it[8];
-  const_terms(static_cast<uint32_t>(gamma), gt);
-  const_terms(static_cast<uint32_t>(inv_gamma), it);
+  // mask of (known cell i, input plane j) for output plane o = b*Q + p:
+  // bit b of R_r[p, i] * 2^j, i.e. rbits[o, j*k0 + i]
+  for (int s = threadIdx.x; s < k0 * 8 * kOut; s += blockDim.x) {
+    const int o = s % kOut, cj = s / kOut;
+    masks[s] = rbits[o * (8 * k0) + (cj & 7) * k0 + (cj >> 3)] ? ~0u : 0u;
+  }
+  for (int s = threadIdx.x; s < 128; s += blockDim.x) {
+    const uint32_t c = static_cast<uint32_t>(s < 64 ? gamma : inv_gamma);
+    const int j = (s >> 3) & 7, b = s & 7;
+    masks[k0 * 8 * kOut + s] = (gf_mul_byte(c, 1u << j) >> b) & 1u ? ~0u : 0u;
+  }
+  __syncthreads();
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int x0 = lost_int % Q, y0 = lost_int / Q;
   const int beta = pw[t - 1];
   const long long alpha = pw[t];
-  const long long nwords = (w_a + 3) / 4;
-  const long long total = n_win * beta * nwords;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long tiles = (w_a + kTileCols - 1) / kTileCols;
+  const long long items = n_win * beta * tiles;
   const long long hstride = n_win * beta * w_a;   // one helper's bytes
-  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       g < total; g += stride) {
-    const long long c = (g % nwords) * 4;
-    const long long rest = g / nwords;
+  // a warp per (window, plane rank, tile) item, a block's warps on
+  // consecutive items; no warp reads another's results
+  for (long long it = static_cast<long long>(blockIdx.x) * kWarps + warp;
+       it < items; it += static_cast<long long>(gridDim.x) * kWarps) {
+    const long long tile = it % tiles;
+    const long long rest = it / tiles;
     const int r = static_cast<int>(rest % beta);   // plane rank
     const long long win = rest / beta;
     // the plane layer: digit y0 := x0 inserted into r
     const int z = (r / pw[y0]) * pw[y0 + 1] + x0 * pw[y0] + r % pw[y0];
+    const long long c0 = tile * kTileCols + 16 * lane;
+    const bool vec = aligned && c0 + 528 <= w_a;
     const uint8_t* xw = x4 + win * beta * w_a;
-    uint32_t acc[Q];
+    // the rows of known cell i (internal node i, or i + Q from row y0 on):
+    // its own (none for a virtual node) and its companion's (none on the
+    // diagonal or for a virtual companion).  The companion layer keeps
+    // digit y0 = x0, so it is in the plane: digit y has stride pw[y] in
+    // the rank below y0 and pw[y - 1] above it.
+    auto rows = [&](int i, const uint8_t*& own, const uint8_t*& cmp) {
+      const int n = i < y0 * Q ? i : i + Q;
+      const int y = n / Q, x = n % Q;
+      const int py = pw[y < y0 ? y : y - 1];
+      const int zy = (r / py) % Q;
+      const int hc = hidx[y * Q + zy];
+      own = hidx[n] >= 0 ? xw + hidx[n] * hstride + r * w_a : nullptr;
+      cmp = zy != x && hc >= 0
+                ? xw + hc * hstride + (r + (x - zy) * py) * w_a
+                : nullptr;
+    };
+    uint32_t acc[kOut];
 #pragma unroll
-    for (int p = 0; p < Q; p++) acc[p] = 0;
-    int ki = 0;   // column of R_r: known nodes ascending
-    for (int n = 0; n < n0; n++) {
-      const int y = n / Q;
-      if (y == y0) continue;
-      const int x = n % Q;
-      const int zy = (z / pw[y]) % Q;
-      uint32_t u = 0;
-      if (hidx[n] >= 0) {
-        u = load_word(xw + hidx[n] * hstride + r * w_a, c, w_a, aligned);
+    for (int o = 0; o < kOut; o++) acc[o] = 0;
+    const uint8_t *own, *cmp;
+    uint32_t ru[8], rc[8] = {};   // raw words of the cell in flight
+    rows(0, own, cmp);
+    if (own) load_row(own, c0, w_a, vec, ru);
+    if (cmp) load_row(cmp, c0, w_a, vec, rc);
+#pragma unroll 1
+    for (int i = 0; i < k0; i++) {
+      const bool has_own = own != nullptr, has_cmp = cmp != nullptr;
+      uint32_t u[8], cw[8];
+#pragma unroll
+      for (int b = 0; b < 8; b++) {
+        u[b] = has_own ? ru[b] : 0u;   // virtual nodes store zeros
+        cw[b] = rc[b];
       }
-      const int comp = y * Q + zy;
-      if (zy != x && hidx[comp] >= 0) {
-        // the companion layer keeps digit y0 = x0: it is in the plane
-        const int zc = z + (x - zy) * pw[y];
-        const int rc = (zc / pw[y0 + 1]) * pw[y0] + zc % pw[y0];
-        u ^= gf_mul_word(load_word(xw + hidx[comp] * hstride + rc * w_a, c,
-                                   w_a, aligned),
-                         gt);
+      if (i + 1 < k0) {   // the next cell's loads fly under this network
+        rows(i + 1, own, cmp);
+        if (own) load_row(own, c0, w_a, vec, ru);
+        if (cmp) load_row(cmp, c0, w_a, vec, rc);
       }
-      const uint32_t* rt = rterm + ki * 8 * Q;
+      if (!has_own && !has_cmp) continue;   // U = 0: no term
+      if (has_own) transpose8(u);
+      if (has_cmp) {   // U = C ^ G(C[companion])
+        transpose8(cw);
+        gf_const_planes(cw, gmap, u);
+      }
+      const uint4* mrow = smem4 + i * 8 * kO4;   // masks of known cell i
 #pragma unroll
       for (int j = 0; j < 8; j++) {
-        const uint32_t m = lane_mask(u, j);
 #pragma unroll
-        for (int p = 0; p < Q; p++) acc[p] ^= m & rt[j * Q + p];
+        for (int o4 = 0; o4 < kO4; o4++) {
+          const uint4 m = mrow[j * kO4 + o4];
+          acc[4 * o4 + 0] ^= u[j] & m.x;
+          acc[4 * o4 + 1] ^= u[j] & m.y;
+          acc[4 * o4 + 2] ^= u[j] & m.z;
+          acc[4 * o4 + 3] ^= u[j] & m.w;
+        }
       }
-      ki++;
     }
+    // the lost node's cells of row y0: x = x0 is in the plane (diagonal,
+    // C = U); every other x lies out of it, at layer z with digit y0 := x,
+    // C = IG(U ^ C[helper (x, y0)]), a virtual helper reading as 0
     uint8_t* ow = out + win * alpha * w_a;
 #pragma unroll
     for (int x = 0; x < Q; x++) {
-      if (x == x0) {   // the lost node's in-plane cell is diagonal: C = U
-        store_word(ow + z * w_a, c, w_a, aligned, acc[x]);
-        continue;
+      uint32_t w[8];
+      if (x == x0) {
+#pragma unroll
+        for (int b = 0; b < 8; b++) w[b] = acc[b * Q + x];
+      } else {
+        const int hn = hidx[y0 * Q + x];
+        uint32_t v[8] = {};
+        if (hn >= 0) {
+          load_row(xw + hn * hstride + r * w_a, c0, w_a, vec, v);
+          transpose8(v);
+        }
+#pragma unroll
+        for (int b = 0; b < 8; b++) {
+          v[b] ^= acc[b * Q + x];
+          w[b] = 0;
+        }
+        gf_const_planes(v, imap, w);
       }
-      // C[lost, z with digit y0 := x] = g^-1 * (U[helper] ^ C[helper])
-      const int hn = hidx[y0 * Q + x];
-      const uint32_t ch =
-          hn >= 0 ? load_word(xw + hn * hstride + r * w_a, c, w_a, aligned)
-                  : 0u;
-      store_word(ow + (z + (x - x0) * pw[y0]) * w_a, c, w_a, aligned,
-                 gf_mul_word(acc[x] ^ ch, it));
+      transpose8(w);
+      store_row(ow + (z + (x - x0) * pw[y0]) * w_a, c0, w_a, vec, w);
     }
   }
-}
-
-// Dynamic shared memory of the repair: the replicated R_r terms and hidx.
-size_t repair_smem_bytes(int q, int t) {
-  const size_t k0 = static_cast<size_t>(q) * (t - 1);
-  return k0 * 8 * q * sizeof(uint32_t) +
-         static_cast<size_t>(q) * t * sizeof(int);
-}
-
-long long grid_for(long long total, int sm_count) {
-  long long blocks = (total + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(sm_count) * 8;
-  if (blocks > cap) blocks = cap;
-  return blocks < 1 ? 1 : blocks;
 }
 
 template <typename Kernel>
@@ -498,6 +500,9 @@ int launch_encode(const uint8_t* rbits, int k, int t, int gamma, int det_inv,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The same walk for the repair: a block's warps take consecutive (window,
+// plane rank, tile) items, so a window's helper rows stay in L2 for the
+// companion re-reads.
 template <int Q>
 int launch_repair(const uint8_t* rbits, int k, int t, int lost, int gamma,
                   int inv_gamma, const uint8_t* x4, uint8_t* out,
@@ -506,16 +511,20 @@ int launch_repair(const uint8_t* rbits, int k, int t, int lost, int gamma,
   const size_t smem = repair_smem_bytes(Q, t);
   int rc = prepare(clay_repair_kernel<Q>, smem);
   if (rc) return rc;
-  const long long total = n_win * ipow(Q, t - 1) * ((w_a + 3) / 4);
-  clay_repair_kernel<Q><<<static_cast<unsigned>(grid_for(total, sm_count)),
-                          kThreads, smem, stream>>>(
-      rbits, x4, out, k, t, lost, gamma, inv_gamma, n_win, w_a, aligned);
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, clay_repair_kernel<Q>, kThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles = (w_a + kTileCols - 1) / kTileCols;
+  const long long items = n_win * ipow(Q, t - 1) * tiles;
+  const long long groups = (items + kThreads / 32 - 1) / (kThreads / 32);
+  long long blocks =
+      static_cast<long long>(sm_count) * (per_sm > 0 ? per_sm : 1);
+  if (blocks > groups) blocks = groups;
+  clay_repair_kernel<Q><<<static_cast<unsigned>(blocks), kThreads, smem,
+                          stream>>>(rbits, x4, out, k, t, lost, gamma,
+                                    inv_gamma, n_win, w_a, aligned);
   return static_cast<int>(cudaGetLastError());
-}
-
-int aligned_for(const void* a, const void* b, long long w_a) {
-  return (w_a % 4 == 0) && (reinterpret_cast<uintptr_t>(a) % 4 == 0) &&
-         (reinterpret_cast<uintptr_t>(b) % 4 == 0);
 }
 
 int aligned16_for(const void* a, const void* b, long long w_a) {
@@ -559,7 +568,7 @@ int clay_fused_repair(const uint8_t* rbits, int q, int k, int t, int lost,
   if (n_win == 0 || w_a == 0) return 0;
   if (t < 2 || t > kMaxT) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int al = aligned_for(x4, out, w_a);
+  const int al = aligned16_for(x4, out, w_a);
   switch (q) {
     case 2: return launch_repair<2>(rbits, k, t, lost, gamma, inv_gamma, x4, out, n_win, w_a, al, sm_count, s);
     case 3: return launch_repair<3>(rbits, k, t, lost, gamma, inv_gamma, x4, out, n_win, w_a, al, sm_count, s);

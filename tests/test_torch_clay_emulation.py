@@ -1,17 +1,22 @@
-"""A numpy model of the thread program of the CUDA clay encode kernel
-(`clay_encode_kernel`, seaweedfs_tpu_torch/csrc/clay_fused.cu), held byte
-for byte against the kernel's plain version (`clay_fused_encode_plain`) and
-against the JAX package's Pallas kernel run through the interpreter.
+"""Numpy models of the thread programs of the two CUDA clay kernels
+(`clay_encode_kernel` and `clay_repair_kernel`,
+seaweedfs_tpu_torch/csrc/clay_fused.cu), held byte for byte against the
+kernels' plain versions (`clay_fused_encode_plain`,
+`clay_fused_repair_plain`), against the JAX package's Pallas kernels run
+through the interpreter and, for the repair, against the encoded shard.
 
-The CUDA kernel cannot run on this CPU host.  The model runs every thread of
+The CUDA kernels cannot run on this CPU host.  A model runs every thread of
 the launch at once, one numpy element per thread, and repeats the kernel's
-steps on packed uint32 words: the block's items (window, class of the low
-layer digits, tile group) and warps (layer digit z_{t-1}, tile), the two
-16-byte loads of a row and the guarded byte path at the ragged edge
-(`load_row` / `store_row`, csrc/bitslice.cuh), `transpose8`, the shared
-mask expansion, the plane-domain maps of gamma and det_inv, the mask
-network, and the couple exchange through the block's shared words.  Clay
-is exact: every comparison is byte equality (tolerance zero)."""
+steps on packed uint32 words: the items and warps, the two 16-byte loads of
+a row and the guarded byte path at the ragged edge (`load_row` /
+`store_row`, csrc/bitslice.cuh), `transpose8`, the shared mask expansion,
+the plane-domain maps of the GF(2^8) constants, and the mask network.  The
+encode's block holds the q layers of one class and exchanges their
+uncoupled parity through the block's shared words; the repair's warps each
+own one (window, plane rank, tile) item, read their known cells' own and
+companion rows and the lost row's helpers, and write the lost node's q
+cells of the item.  Clay is exact: every comparison is byte equality
+(tolerance zero)."""
 
 import functools
 
@@ -217,35 +222,48 @@ def _args(k, m):
     return dict(q=c.q, t=c.t, gamma=GAMMA, det_inv=int(c._det_inv))
 
 
-@functools.lru_cache(maxsize=1)   # the cases run in (k, m, w_a) order
-def _case(k: int, m: int, w_a: int):
-    """(data4 [k, 3, alpha, w_a], the plain version's parity, the Pallas
-    interpreter's parity) from one numpy seed.  Columns are independent
-    code instances, so the plain version runs a window and 1024 columns at
-    a time, and the Pallas kernel (whose tiles are multiples of 128 lanes)
-    on w_a padded with zero columns, cropped after."""
-    c = code(k, m)
-    rng = np.random.default_rng(1000 * k + 10 * m + w_a)
-    data4 = rng.integers(0, 256, (k, N_WIN, c.alpha, w_a), dtype=np.uint8)
+def _plain_parity(data4: np.ndarray, k: int, m: int) -> np.ndarray:
+    """clay_fused_encode_plain of data4 [k, n_win, alpha, w_a].  Columns are
+    independent code instances, so it runs a window and 1024 columns at a
+    time."""
+    n_win, w_a = data4.shape[1], data4.shape[3]
     rbits = torch.from_numpy(cs.r_bits_plane_major(k, m))
-    plain = np.empty((m, N_WIN, c.alpha, w_a), np.uint8)
-    for wi in range(N_WIN):
+    plain = np.empty((m,) + data4.shape[1:], np.uint8)
+    for wi in range(n_win):
         for c0 in range(0, w_a, TILE):
             part = np.ascontiguousarray(data4[:, wi:wi + 1, :, c0:c0 + TILE])
             plain[:, wi:wi + 1, :, c0:c0 + TILE] = \
                 clay_cuda.clay_fused_encode_plain(
                     rbits, torch.from_numpy(part), **_args(k, m)).numpy()
-    padded_w = -(-w_a // 128) * 128
-    padded = np.zeros((k, N_WIN, c.alpha, padded_w), np.uint8)
-    padded[..., :w_a] = data4
+    return plain
+
+
+def _pallas_padded(call, x: np.ndarray) -> np.ndarray:
+    """call(x) through the Pallas interpreter, its tiles multiples of 128
+    lanes: x's last axis padded with zero columns, the result cropped."""
+    w_a = x.shape[-1]
+    padded = np.zeros(x.shape[:-1] + (-(-w_a // 128) * 128,), np.uint8)
+    padded[..., :w_a] = x
     import seaweedfs_tpu.ops.codec as ref_codec_mod
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("WEED_CLAY_FUSED", "interpret")
         mp.delenv("WEED_EC_BACKEND", raising=False)
         mp.setattr(ref_codec_mod, "device_compute_ok", lambda: True)
-        pallas = np.asarray(ref_cs.encode_device_fused(
-            k, m, jnp.asarray(padded), small=c.alpha * padded_w))
-    return data4, plain, pallas[..., :w_a]
+        return np.asarray(call(jnp.asarray(padded)))[..., :w_a]
+
+
+@functools.lru_cache(maxsize=1)   # the cases run in (k, m, w_a) order
+def _case(k: int, m: int, w_a: int):
+    """(data4 [k, 3, alpha, w_a], the plain version's parity, the Pallas
+    interpreter's parity) from one numpy seed."""
+    c = code(k, m)
+    rng = np.random.default_rng(1000 * k + 10 * m + w_a)
+    data4 = rng.integers(0, 256, (k, N_WIN, c.alpha, w_a), dtype=np.uint8)
+    pallas = _pallas_padded(
+        lambda x: ref_cs.encode_device_fused(k, m, x,
+                                             small=c.alpha * x.shape[-1]),
+        data4)
+    return data4, _plain_parity(data4, k, m), pallas
 
 
 GEOMETRIES = [(10, 4), (6, 3), (4, 2)]
@@ -296,3 +314,165 @@ def test_plane_maps_multiply_by_the_constant(c):
     src = np.stack(words, -1).view(np.uint8)
     table = np.array([gf_mul_byte(c, v) for v in range(256)], np.uint8)
     assert np.array_equal(got, table[src])
+
+
+# -- the repair ---------------------------------------------------------------
+
+WARPS = 8            # kThreads / 32: a repair block's warps
+
+
+def emulate_repair(rbits: np.ndarray, x4: np.ndarray, *, k: int, q: int,
+                   t: int, lost: int, gamma: int,
+                   inv_gamma: int) -> np.ndarray:
+    """The lost shard's windows clay_repair_kernel<q> writes for x4 [k+q-1,
+    n_win, beta, w_a], every thread of the launch modelled at once."""
+    _, n_win, beta, w_a = x4.shape
+    k0, n0, alpha, k_out = q * (t - 1), q * t, q ** t, 8 * q
+    pw = [q ** y for y in range(t + 1)]
+    flat = np.ascontiguousarray(x4).reshape(-1)
+    out = np.zeros(n_win * alpha * w_a, np.uint8)
+    lost_int = lost if lost < k else n0 - q + (lost - k)
+    # prologue: internal node -> helper row, the shared masks, the gamma
+    # and inv_gamma maps
+    hidx = []
+    for n in range(n0):
+        ext = n if n < k else (k + n - (n0 - q) if n >= n0 - q else -1)
+        hidx.append(-1 if ext < 0 or n == lost_int
+                    else (ext if ext < lost else ext - 1))
+    hidx = np.array(hidx)
+    rb = np.ascontiguousarray(rbits).reshape(-1)
+    s_ix = np.arange(k0 * 8 * k_out)
+    o, cj = s_ix % k_out, s_ix // k_out
+    masks = np.where(rb[o * (8 * k0) + (cj & 7) * k0 + (cj >> 3)] != 0,
+                     ONES, np.uint32(0))
+    maps = np.array([ONES if (gf_mul_byte(c, 1 << j) >> b) & 1 else 0
+                     for c in (gamma, inv_gamma) for j in range(8)
+                     for b in range(8)], np.uint32)
+    gmap, imap = maps[:64], maps[64:]
+    aligned = w_a % 16 == 0
+
+    # the thread grid [block item group, warp, lane]: warp item = group *
+    # WARPS + warp; the last group's warps past the items stay idle
+    x0, y0 = lost_int % q, lost_int // q
+    tiles = -(-w_a // TILE)
+    items = n_win * beta * tiles
+    it = (np.arange(-(-items // WARPS)).reshape(-1, 1, 1) * WARPS
+          + np.arange(WARPS).reshape(1, -1, 1))
+    lane = np.arange(32).reshape(1, 1, -1)
+    shape = np.broadcast(it, lane).shape
+    live = np.broadcast_to(it < items, shape)
+    it = np.minimum(it, items - 1)   # idle warps: in-range rows, no stores
+    tile = it % tiles
+    rest = it // tiles
+    r = rest % beta
+    win = rest // beta
+    z = (r // pw[y0]) * pw[y0 + 1] + x0 * pw[y0] + r % pw[y0]
+    c0 = tile * TILE + 16 * lane
+    vec = np.broadcast_to(aligned & (c0 + 528 <= w_a), shape)
+    hstride = n_win * beta * w_a
+    xw = win * beta * w_a
+    zero = np.zeros(shape, np.uint32)
+
+    acc = [zero.copy() for _ in range(k_out)]
+    # known cell i: internal node i, or i + q from row y0 on (the kernel
+    # issues cell i+1's loads before cell i's network; the model runs them
+    # in program order)
+    for i in range(k0):
+        n = i if i < y0 * q else i + q
+        y, x = divmod(n, q)
+        py = pw[y if y < y0 else y - 1]   # digit y's stride in the rank
+        zy = (r // py) % q
+        hc = hidx[y * q + zy]
+        if hidx[n] >= 0:
+            u = transpose8(load_row(flat, xw + hidx[n] * hstride + r * w_a,
+                                    c0, w_a, vec))
+        else:                 # virtual nodes store zeros
+            u = [zero.copy() for _ in range(8)]
+        has = np.broadcast_to((zy != x) & (hc >= 0), shape)
+        crow = np.where(has, xw + hc * hstride + (r + (x - zy) * py) * w_a, 0)
+        cw = transpose8(load_row(flat, crow, c0, w_a, vec & has))
+        gu = [a.copy() for a in u]
+        gf_const_planes(cw, gmap, gu)
+        u = [np.where(has, a, b) for a, b in zip(gu, u)]
+        cell = has | (hidx[n] >= 0)   # U = 0 adds no term: the kernel
+        for j in range(8):            # skips the cell
+            for oo in range(k_out):
+                m = masks[(i * 8 + j) * k_out + oo]
+                acc[oo] = np.where(cell, acc[oo] ^ (u[j] & m), acc[oo])
+
+    # row y0 of the lost node: x0 in the plane, C = U; x != x0 out of it,
+    # C = IG(U ^ C[helper (x, y0)])
+    for x in range(q):
+        if x == x0:
+            w = [acc[b * q + x] for b in range(8)]
+        else:
+            hn = hidx[y0 * q + x]
+            v = (transpose8(load_row(flat, xw + hn * hstride + r * w_a, c0,
+                                     w_a, vec))
+                 if hn >= 0 else [zero.copy() for _ in range(8)])
+            v = [v[b] ^ acc[b * q + x] for b in range(8)]
+            w = [zero.copy() for _ in range(8)]
+            gf_const_planes(v, imap, w)
+        store_row(out, (win * alpha + z + (x - x0) * pw[y0]) * w_a, c0, w_a,
+                  vec, live, transpose8(w))
+    return out.reshape(n_win, alpha, w_a)
+
+
+def _repair_args(k, m, lost):
+    c = code(k, m)
+    return dict(k=k, q=c.q, t=c.t, lost=lost, gamma=GAMMA,
+                inv_gamma=cs.repair_parts(k, m, lost)[3])
+
+
+@functools.lru_cache(maxsize=1)   # the cases run in (k, m, w_a) order
+def _stripe(k: int, m: int, w_a: int, n_win: int) -> np.ndarray:
+    """The encoded shards [k+m, n_win, alpha, w_a] of seeded data: the data
+    and the plain version's parity (held to the Pallas interpreter's by the
+    encode cases above)."""
+    c = code(k, m)
+    rng = np.random.default_rng(2000 * k + 10 * m + w_a)
+    data4 = rng.integers(0, 256, (k, n_win, c.alpha, w_a), dtype=np.uint8)
+    return np.concatenate([data4, _plain_parity(data4, k, m)])
+
+
+def _repair_plain(k, m, lost, x4):
+    """clay_fused_repair_plain of x4, a window and 1024 columns at a time."""
+    rbits = torch.from_numpy(cs.repair_bits_plane_major(k, m, lost))
+    n_win, w_a = x4.shape[1], x4.shape[3]
+    out = np.empty((n_win, code(k, m).alpha, w_a), np.uint8)
+    for wi in range(n_win):
+        for c0 in range(0, w_a, TILE):
+            part = np.ascontiguousarray(x4[:, wi:wi + 1, :, c0:c0 + TILE])
+            out[wi:wi + 1, :, c0:c0 + TILE] = \
+                clay_cuda.clay_fused_repair_plain(
+                    rbits, torch.from_numpy(part),
+                    **_repair_args(k, m, lost)).numpy()
+    return out
+
+
+REPAIR_CASES = (
+    [(10, 4, 4096, 1, lost) for lost in range(14)]
+    + [(6, 3, 4096, 1, lost) for lost in range(9)]
+    + [(4, 2, 4096, 1, lost) for lost in range(6)]
+    + [(10, 4, w_a, N_WIN, lost) for w_a in (4099, 13, 1600)
+       for lost in (0, 8, 13)])
+
+
+@pytest.mark.parametrize("k,m,w_a,n_win,lost", REPAIR_CASES)
+def test_repair_thread_program_matches_plain_shard_and_pallas(k, m, w_a,
+                                                              n_win, lost):
+    """Every lost id at w_a 4096 (every thread on the 16-byte loads; lost 8
+    and 9 of Clay(10,4) hold virtual nodes in their grid row); the ragged
+    widths as in the encode cases, with a data, a virtual-row and a parity
+    loss."""
+    sh4 = _stripe(k, m, w_a, n_win)
+    helpers, plane, _, _ = cs.repair_parts(k, m, lost)
+    x4 = np.ascontiguousarray(sh4[list(helpers)][:, :, list(plane)])
+    got = emulate_repair(cs.repair_bits_plane_major(k, m, lost), x4,
+                         **_repair_args(k, m, lost))
+    assert np.array_equal(got, sh4[lost])
+    assert np.array_equal(got, _repair_plain(k, m, lost, x4))
+    if (k, m) == (10, 4):
+        pallas = _pallas_padded(
+            lambda x: ref_cs.repair_device_fused(k, m, lost, x), x4)
+        assert np.array_equal(got, pallas)
