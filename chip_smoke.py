@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's erasure-coding paths on the card, RS(10,4) and Clay(10,4),
-in six phases; any mismatch or failure exits non-zero:
+Drives the port's erasure-coding paths on the card, RS(10,4), Clay(10,4)
+and LRC(10,2,2), in seven phases; any mismatch or failure exits non-zero:
 
 1. Build every native source of the port (`seaweedfs_tpu_torch/csrc/`) into
    the git-ignored `seaweedfs_tpu_torch/build/`, compilers in parallel, and
@@ -18,8 +18,8 @@ in six phases; any mismatch or failure exits non-zero:
    16-byte and the guarded byte path in one warp); repair of every lost
    shard 0..13 of Clay(10,4), and of shards 0, 9, 10, 13 at the ragged
    widths, each also held against the encoded shard.
-3. Fleet-sized device batches timed with CUDA events (median after
-   warm-up) beside their bounds and held against the plain versions: RS
+3. Fleet-sized device batches timed with CUDA events (min, quartiles and
+   median of 21 runs after warm-up) beside their bounds and held against the plain versions: RS
    encode and 4-lost reconstruct of [V=64, k=10, 8 MiB] (shard-major and
    volume-major entries; the volume-major entry has no caller in the
    package, and its first call here, counted from zero, is its drive);
@@ -47,7 +47,20 @@ in six phases; any mismatch or failure exits non-zero:
    degraded reads with shards 1 and 4 gone, decode back to a byte-identical
    .dat, and the fleet forms on 4 volumes of 256 MiB.  The two Clay launch
    counts are zeroed just before this phase and must be > 0 after it.
-6. The kernels line (JSON), the card line, then the result line.
+6. The serving binding (`seaweedfs_tpu_torch.serving.bind`), driven with
+   the calls the volume server's EC RPCs and its store make: a 1 GiB
+   volume as LRC(10,2,2) (`ec.encode -kind lrc -lrcLocals 2`), its parity
+   held against the numpy oracle, a single-loss rebuild of .ec03 on the
+   local plan (5 shards read) and a 2-loss rebuild of .ec03 and .ec13 on
+   the global plan, 300 degraded reads through EcVolume + load_shard,
+   file_count / deleted_count after 10 deletes, decode back to a
+   byte-identical .dat and destroy; then the same for an RS(10,4) and a
+   Clay(10,4) volume of 256 MiB.  Every kernel's launch count is zeroed
+   before it; gf2_matmul and both clay kernels must launch, and the codec
+   metrics' dispatch counts must equal the dispatches the phase made.
+7. The kernels line (JSON; each kernel's median time at its fleet shape
+   over 21 runs, with min and quartiles), the card line, then the result
+   line.
 
 Every number is printed beside the card's name and power limit.  Needs a
 CUDA device; without one it exits non-zero and prints no result.
@@ -60,7 +73,6 @@ import json
 import os
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -125,8 +137,13 @@ def gf_ops(mo: int, ki: int, columns: int) -> int:
     return 2 * (8 * mo) * (8 * ki) * columns
 
 
-def time_cuda(torch, fn, reps: int = 7, warmup: int = 2) -> float:
-    """Median ms of `fn` over `reps` runs, each bracketed by CUDA events."""
+# runs of each kernel at its fleet shape: enough for its quartiles
+SPREAD_RUNS = 21
+
+
+def time_cuda(torch, fn, reps: int = SPREAD_RUNS, warmup: int = 2) -> dict:
+    """ms of `fn` over `reps` runs, each bracketed by CUDA events: the
+    median ("ms"), min, 25th and 75th percentiles, and the run count."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -139,7 +156,16 @@ def time_cuda(torch, fn, reps: int = 7, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    p25, p50, p75 = np.percentile(times, [25, 50, 75])
+    return {"ms": float(p50), "min": min(times), "p25": float(p25),
+            "p75": float(p75), "runs": reps}
+
+
+def spread_line(tag: str, what: str, t: dict, bound: float, card: str
+                ) -> str:
+    return (f"[{tag}] spread of {what} over {t['runs']} runs: min "
+            f"{t['min']:.3f}, p25 {t['p25']:.3f}, median {t['ms']:.3f}, p75 "
+            f"{t['p75']:.3f} ms; bound {bound:.3f} ms  [{card}]")
 
 
 def _kernel_name(entry: str) -> str:
@@ -222,7 +248,7 @@ def phase_kernel_vs_plain(torch, device, cases, card, tally, gen_seed=1):
 # -- phase 3 ---------------------------------------------------------------
 
 def phase_fleet(torch, device, card, tally, volumes=64, width=8 * MIB,
-                reps=7):
+                reps=SPREAD_RUNS):
     from seaweedfs_tpu_torch.ops import rs_cuda
     from seaweedfs_tpu_torch.ops.codec import RSCodec
     k, m = 10, 4
@@ -234,9 +260,10 @@ def phase_fleet(torch, device, card, tally, volumes=64, width=8 * MIB,
     res = {}
 
     parity = rs_cuda.gf_matmul_bits_cuda(codec.parity_planes, data)
-    res["encode_ms"] = time_cuda(
+    res["encode_spread"] = time_cuda(
         torch, lambda: rs_cuda.gf_matmul_bits_cuda(codec.parity_planes, data),
         reps=reps)
+    res["encode_ms"] = res["encode_spread"]["ms"]
     # survivors of the 4-lost mask, rebuilt back to the lost shards
     chosen = torch.empty_like(data)
     for j, s in enumerate(PRESENT):
@@ -248,7 +275,8 @@ def phase_fleet(torch, device, card, tally, volumes=64, width=8 * MIB,
         check(torch.equal(rebuilt[:, j], lost),
               f"fleet reconstruct: shard {s} differs from the original")
     res["reconstruct_ms"] = time_cuda(
-        torch, lambda: rs_cuda.gf_matmul_bits_cuda(planes, chosen), reps=reps)
+        torch, lambda: rs_cuda.gf_matmul_bits_cuda(planes, chosen),
+        reps=reps)["ms"]
     # the volume-major entry on the same stack: it has no caller in the
     # package (nor has its TPU kernel), so this call, counted from zero, is
     # its drive
@@ -259,9 +287,10 @@ def phase_fleet(torch, device, card, tally, volumes=64, width=8 * MIB,
           "the volume-major entry's drive launched it no time")
     check(torch.equal(vm_parity, parity),
           "volume-major entry differs from the shard-major one")
-    res["vm_ms"] = time_cuda(
+    res["vm_spread"] = time_cuda(
         torch, lambda: rs_cuda.gf_matmul_bits_vm_cuda(codec.parity_planes,
                                                       data), reps=reps)
+    res["vm_ms"] = res["vm_spread"]["ms"]
     del vm_parity
 
     # plain version, one volume at a time (its float32 bit-planes take 32
@@ -294,6 +323,9 @@ def phase_fleet(torch, device, card, tally, volumes=64, width=8 * MIB,
     print(f"[fleet] encode through the volume-major entry [{volumes}, {k}, "
           f"{width}]: {res['vm_ms']:.3f} ms, plain {res['vm_plain_ms']:.1f} "
           f"ms  [{card}]")
+    for op in ("encode", "vm"):
+        print(spread_line("fleet", f"{op} [{volumes}, {k}, {width}]",
+                          res[op + "_spread"], res["encode_bound_ms"], card))
     for op in ("encode", "reconstruct"):
         print(f"[fleet] {op} [{volumes}, {k}, {width}]: kernel "
               f"{res[op + '_ms']:.3f} ms ({gb_in / res[op + '_ms'] * 1e3:.1f}"
@@ -417,7 +449,7 @@ def _plain_chunked(torch, tally, name, fn, n_win, step, out, what):
 
 
 def phase_clay_fleet(torch, device, card, tally, n_win=512, lost=3,
-                     reps=5, per_call_windows=8):
+                     reps=SPREAD_RUNS, per_call_windows=8):
     """Clay(10,4) at a fleet-sized device batch (512 windows of 1 MiB per
     shard): the fused encode, the fused repair of one lost shard, and the
     tiled path with its column-tiled product, timed with CUDA events beside
@@ -438,9 +470,10 @@ def phase_clay_fleet(torch, device, card, tally, n_win=512, lost=3,
     res = {"shape_encode": list(data.shape)}
 
     parity = cs.encode_device_fused(k, m, data, small=small)
-    res["encode_ms"] = time_cuda(
+    res["encode_spread"] = time_cuda(
         torch, lambda: cs.encode_device_fused(k, m, data, small=small),
         reps=reps)
+    res["encode_ms"] = res["encode_spread"]["ms"]
     res["encode_plain_ms"] = _plain_chunked(
         torch, tally, "clay_fused_encode",
         lambda a, b: clay_cuda.clay_fused_encode_plain(
@@ -461,7 +494,7 @@ def phase_clay_fleet(torch, device, card, tally, n_win=512, lost=3,
     res["encode_per_call_ms"] = time_cuda(
         torch, lambda: [clay_cuda.clay_fused_encode(rbits, per_call,
                                                     **enc_args)
-                        for _ in range(runs)], reps=reps) / runs
+                        for _ in range(runs)], reps=5)["ms"] / runs
     pc_cols = per_call_windows * c.alpha * w_a
     res["encode_per_call_bound_ms"], res["encode_per_call_bound_by"] = \
         bound_ms(k * pc_cols, m * pc_cols, gf_ops(m, c.k0, pc_cols))
@@ -474,8 +507,9 @@ def phase_clay_fleet(torch, device, card, tally, n_win=512, lost=3,
     rebuilt = cs.repair_device_fused(k, m, lost, x4)
     check(torch.equal(rebuilt, shards[lost]),
           f"clay fleet repair of {lost} differs from the encoded shard")
-    res["repair_ms"] = time_cuda(
+    res["repair_spread"] = time_cuda(
         torch, lambda: cs.repair_device_fused(k, m, lost, x4), reps=reps)
+    res["repair_ms"] = res["repair_spread"]["ms"]
     rp = cs.solve_planes(k, m, lost, device)
     rep_args = dict(_clay_args(c), k=k, lost=lost, inv_gamma=inv_gamma)
     # alone at the per-call shape too, as the encode above
@@ -486,7 +520,7 @@ def phase_clay_fleet(torch, device, card, tally, n_win=512, lost=3,
           "clay repair at the per-call shape differs from the fleet batch")
     res["repair_per_call_ms"] = time_cuda(
         torch, lambda: [clay_cuda.clay_fused_repair(rp, per_call, **rep_args)
-                        for _ in range(runs)], reps=reps) / runs
+                        for _ in range(runs)], reps=5)["ms"] / runs
     pc_pcols = per_call_windows * c.beta * w_a
     res["repair_per_call_bound_ms"], res["repair_per_call_bound_by"] = \
         bound_ms((k + m - 1) * pc_pcols, per_call_windows * c.alpha * w_a,
@@ -515,13 +549,14 @@ def phase_clay_fleet(torch, device, card, tally, n_win=512, lost=3,
     del tiled
     res["tiled_ms"] = time_cuda(
         torch, lambda: cs.encode_device_tiled(k, m, data5, small=small),
-        reps=3, warmup=1)
+        reps=3, warmup=1)["ms"]
     # its column-tiled product alone, on the uncoupled operand's shape
     u = torch.randint(0, 256, (c.k0, n_win * c.alpha * w_a // 128, 128),
                       dtype=torch.uint8, device=device, generator=g)
     u_par = rs_cuda.gf_matmul_bits_cols_cuda(rbits, u)
-    res["cols_ms"] = time_cuda(
+    res["cols_spread"] = time_cuda(
         torch, lambda: rs_cuda.gf_matmul_bits_cols_cuda(rbits, u), reps=reps)
+    res["cols_ms"] = res["cols_spread"]["ms"]
     per_win = c.alpha * w_a // 128
     res["cols_plain_ms"] = _plain_chunked(
         torch, tally, "gf2_matmul_cols",
@@ -540,6 +575,9 @@ def phase_clay_fleet(torch, device, card, tally, n_win=512, lost=3,
         print(f"[clay-fleet] {what}: kernel {res[op + '_ms']:.3f} ms, bound "
               f"{res[op + '_bound_ms']:.3f} ms ({res[op + '_bound_by']}), "
               f"plain {res[op + '_plain_ms']:.1f} ms  [{card}]")
+    for op in ("encode", "repair", "cols"):
+        print(spread_line("clay-fleet", op, res[op + "_spread"],
+                          res[op + "_bound_ms"], card))
     for op in ("encode", "repair"):
         print(f"[clay-fleet] fused {op} at the per-call shape "
               f"{res['shape_' + op + '_per_call']}: kernel "
@@ -592,38 +630,51 @@ def _files_equal(a: str, b: str) -> bool:
                                np.memmap(b, dtype=np.uint8, mode="r")))
 
 
-def degraded_reads(work_dir, vid, needles, geo, codec, gone, reads, seed):
-    """`reads` needle reads through EcVolume with the shards `gone`
-    missing, drawn (seeded) from the needles that touch them; each payload
-    is held against the .dat.  Returns the latency percentiles."""
-    from seaweedfs_tpu_torch.storage import ec
-    from seaweedfs_tpu_torch.storage import types as t
-    ev = ec.EcVolume(work_dir, "", vid, codec=codec)
+def open_ec_volume(work_dir, vid, geo, gone, ec_volume=None, codec=None):
+    """An EcVolume of `vid` with every shard but `gone` loaded, as the store
+    builds it: `ec_volume(dir, collection, vid)`, then load_shard."""
+    if ec_volume is None:
+        from seaweedfs_tpu_torch.storage import ec
+        ev = ec.EcVolume(work_dir, "", vid, codec=codec)
+    else:
+        ev = ec_volume(work_dir, "", vid)
     for s in range(geo.total_shards):
         if s not in gone:
-            ev.add_shard(s)
+            ev.load_shard(s)
+    return ev
+
+
+def degraded_reads(ev, dat_path, needles, geo, gone, reads, seed):
+    """`reads` needle reads through the EcVolume `ev` with the shards
+    `gone` missing, drawn (seeded) from the needles that touch them; each
+    payload is held against the .dat at `dat_path`.  Returns the latency
+    percentiles and how many intervals were reconstructed."""
+    from seaweedfs_tpu_torch.storage import types as t
     rng = np.random.default_rng(seed)
-    touching = [nd for nd in needles
-                if any(iv.to_shard_id_and_offset(geo)[0] in gone
-                       for iv in ev.locate_ec_shard_needle(nd[0])[2])]
+    touching = []
+    for nd in needles:
+        hit = sum(iv.to_shard_id_and_offset(geo)[0] in gone
+                  for iv in ev.locate_ec_shard_needle(nd[0])[2])
+        if hit:
+            touching.append((nd, hit))
     check(len(touching) > 0, "no needle touches the lost shards")
     picks = rng.choice(len(touching), size=reads,
                        replace=len(touching) < reads)
-    dat = np.memmap(os.path.join(work_dir, str(vid)) + ".dat",
-                    dtype=np.uint8, mode="r")
-    lat = []
+    dat = np.memmap(dat_path, dtype=np.uint8, mode="r")
+    lat, intervals = [], 0
     for i in picks:
-        nid, off, size = touching[int(i)]
+        (nid, off, size), hit = touching[int(i)]
         t0 = time.perf_counter()
         n = ev.read_needle(nid)
         lat.append((time.perf_counter() - t0) * 1e3)
+        intervals += hit
         start = off + t.NEEDLE_HEADER_SIZE + 4   # v2+: dataSize(4) first
         check(bytes(n.data) == dat[start:start + size].tobytes(),
               f"degraded read of needle {nid} differs")
-    ev.close()
     del dat
     return {"degraded_reads": len(lat),
             "degraded_distinct_needles": len(set(int(i) for i in picks)),
+            "degraded_intervals": intervals,
             "degraded_p50_ms": float(np.percentile(lat, 50)),
             "degraded_p99_ms": float(np.percentile(lat, 99))}
 
@@ -683,8 +734,10 @@ def phase_main_path(device, card, work_dir, volume_bytes=2 << 30,
     gone = [1, 4]
     for s in gone:
         os.replace(path(s), path(s) + ".orig")
-    res.update(degraded_reads(work_dir, 1, needles, geo, codec, gone, reads,
+    ev = open_ec_volume(work_dir, 1, geo, gone, codec=codec)
+    res.update(degraded_reads(ev, base + ".dat", needles, geo, gone, reads,
                               seed + 1))
+    ev.close()
 
     # decode back to .dat (rebuilds the 2 missing data shards first)
     os.replace(base + ".dat", base + ".dat.orig")
@@ -805,8 +858,10 @@ def phase_clay_disk(torch, card, work_dir, codec, rs_codec,
     gone = [1, 4]
     for s in gone:
         os.replace(path(s), path(s) + ".orig")
-    res.update(degraded_reads(work_dir, vid, needles, geo, codec, gone, reads,
+    ev = open_ec_volume(work_dir, vid, geo, gone, codec=codec)
+    res.update(degraded_reads(ev, base + ".dat", needles, geo, gone, reads,
                               seed + 1))
+    ev.close()
     os.replace(base + ".dat", base + ".dat.orig")
     os.replace(base + ".idx", base + ".idx.orig")
     t0 = time.perf_counter()
@@ -954,6 +1009,212 @@ def phase_profile_encode(torch, card, base, codec):
     return res
 
 
+# -- phase 6: the serving binding ---------------------------------------------
+
+SERVING_BATCH = 8 * MIB     # encoder.DEFAULT_BATCH_BYTES
+
+
+def encode_dispatches(dat_size: int, geo, batch_bytes: int = SERVING_BATCH
+                      ) -> int:
+    """The encode calls write_ec_files makes for a .dat of `dat_size`: each
+    large row in `batch_bytes` column slices, then the small rows
+    `batch_bytes // small` at a time."""
+    large_rows = 0
+    while dat_size - large_rows * geo.large_row_size() >= \
+            geo.large_row_size():
+        large_rows += 1
+    rest = dat_size - large_rows * geo.large_row_size()
+    small_rows = -(-rest // geo.small_row_size())
+    per_batch = max(1, batch_bytes // geo.small_block_size)
+    return (large_rows * -(-geo.large_block_size // batch_bytes)
+            + -(-small_rows // per_batch))
+
+
+def serve_volume(bound, card, work_dir, kind, label, vid, volume_bytes,
+                 reads, seed, expected):
+    """One volume through the calls the volume server's EC RPCs and its
+    store make, on the binding `bound`: VolumeEcShardsGenerate's
+    encode_volume_to_ec(base, version=, geo=); two VolumeEcShardsRebuild
+    rebuild_ec_files(base, stats=) (a single loss of .ec03, then .ec03 and
+    .ec13); degraded reads through EcVolume(dir, "", vid) + load_shard;
+    deletes; VolumeEcShardsToVolume's decode_ec_to_volume(base); and
+    destroy.  Adds the codec dispatches it makes to `expected`, under the
+    codec metrics' backend `label`."""
+    from seaweedfs_tpu_torch.ops import lrc
+    from seaweedfs_tpu_torch.storage import types as t
+    geo = bound.EcGeometry(code_kind=kind,
+                           lrc_locals=2 if kind == "lrc" else 0)
+    base = os.path.join(work_dir, str(vid))
+    tag = f"[serving {kind}]"
+
+    def path(s):
+        return base + bound.to_ext(s)
+
+    needles = build_volume(base, volume_bytes, seed)
+    dat_size = os.path.getsize(base + ".dat")
+    res = {"needles": len(needles), "dat_bytes": dat_size}
+    t0 = time.perf_counter()
+    bound.encode_volume_to_ec(base, version=t.VERSION3, geo=geo)
+    res["encode_s"] = time.perf_counter() - t0
+    expected[(label, "encode")] += encode_dispatches(dat_size, geo)
+    shard_size = os.path.getsize(path(0))
+    check(shard_size == geo.shard_file_size(dat_size), f"{kind} shard size")
+    check(bound.geometry_from_vif(base) == geo, f"{kind} .vif geometry")
+    # the shell deletes the volume once it is encoded; its files stay
+    # aside here for the decode's comparison
+    for ext in (".dat", ".idx"):
+        os.replace(base + ext, base + ext + ".orig")
+    if kind == "lrc":
+        # parity over the first and last 8 MiB of every shard against the
+        # numpy oracle
+        lgeo = lrc.LrcGeometry(10, 2, 2)
+        span = min(8 * MIB, shard_size)
+        for off in (0, shard_size - span):
+            data, parity = (
+                np.stack([np.fromfile(path(s), np.uint8, count=span,
+                                      offset=off) for s in rows])
+                for rows in (range(10), range(10, 14)))
+            check(np.array_equal(parity, lrc.encode_shards(lgeo, data)[10:]),
+                  f"LRC parity at shard offset {off} differs from the oracle")
+
+    windows = -(-shard_size // SERVING_BATCH)
+    plans = {"rs": ("rs-full", "rs-full"),
+             "clay": ("clay-plane-fused", "clay-decode"),
+             "lrc": ("local", "global")}[kind]
+    res["rebuilds"] = []
+    for lost, plan in zip(([3], [3, 13]), plans):
+        for s in lost:
+            os.replace(path(s), path(s) + ".orig")
+        stats = {}
+        t0 = time.perf_counter()
+        rebuilt = bound.rebuild_ec_files(base, stats=stats)
+        dt = time.perf_counter() - t0
+        expected[(label, "reconstruct")] += windows if kind == "rs" else 1
+        check(rebuilt == lost, f"{kind} rebuilt {rebuilt}, expected {lost}")
+        check(stats["plan_kind"] == plan,
+              f"{kind} rebuild of {lost}: plan {stats['plan_kind']}")
+        for s in lost:
+            check(_files_equal(path(s), path(s) + ".orig"),
+                  f"{kind} rebuilt shard {s} differs")
+            os.remove(path(s) + ".orig")
+        rb = {"lost": lost, "plan_kind": plan, "s": dt,
+              "bytes_read": stats["bytes_read"],
+              "read_shards": stats.get("read_shards"),
+              "rs_bytes_read": 10 * shard_size}
+        res["rebuilds"].append(rb)
+        print(f"{tag} rebuild_ec_files of {lost}: {plan}, {dt:.2f} s, read "
+              f"{rb['bytes_read']} B against RS's {rb['rs_bytes_read']} B "
+              f"({rb['bytes_read'] / rb['rs_bytes_read']:.4f}), shards "
+              f"{rb['read_shards']}, byte-identical  [{card}]")
+    if kind == "lrc":
+        single, double = res["rebuilds"]
+        check(single["read_shards"] == [0, 1, 2, 4, 10]
+              and single["bytes_read"] == 5 * shard_size,
+              f"LRC single-loss rebuild read {single['read_shards']}, "
+              f"{single['bytes_read']} B")
+        check(double["bytes_read"] == 10 * shard_size,
+              f"LRC 2-loss rebuild read {double['bytes_read']} B")
+
+    gone = [1, 7]
+    for s in gone:
+        os.replace(path(s), path(s) + ".orig")
+    ev = open_ec_volume(work_dir, vid, geo, gone, ec_volume=bound.EcVolume)
+    res.update(degraded_reads(ev, base + ".dat.orig", needles, geo, gone,
+                              reads, seed + 1))
+    if kind == "rs":
+        expected[(label, "reconstruct")] += res["degraded_intervals"]
+    # deletes: 10 needles, never the last (decode sizes the .dat by it)
+    rng = np.random.default_rng(seed + 2)
+    victims = rng.choice(len(needles) - 1, size=10, replace=False)
+    for i in victims:
+        ev.delete_needle(needles[int(i)][0])
+    res["file_count"], res["deleted_count"] = ev.file_count(), \
+        ev.deleted_count()
+    check((res["file_count"], res["deleted_count"])
+          == (len(needles) - 10, 10),
+          f"{kind} file_count / deleted_count {res['file_count']} / "
+          f"{res['deleted_count']} after 10 deletes of {len(needles)}")
+    ev.close()
+
+    # decode: rebuilds the 2 missing data shards, then stitches the .dat
+    t0 = time.perf_counter()
+    bound.decode_ec_to_volume(base)
+    res["decode_s"] = time.perf_counter() - t0
+    expected[(label, "reconstruct")] += windows if kind == "rs" else 1
+    check(_files_equal(base + ".dat", base + ".dat.orig"),
+          f"{kind}-decoded .dat differs from the original")
+    for s in gone:
+        check(_files_equal(path(s), path(s) + ".orig"),
+              f"{kind} shard {s} rebuilt by decode differs")
+        os.remove(path(s) + ".orig")
+
+    ev = open_ec_volume(work_dir, vid, geo, [], ec_volume=bound.EcVolume)
+    ev.destroy()
+    family = {bound.to_ext(s) for s in range(geo.total_shards)} | {
+        ".ecx", ".ecj", ".vif"}
+    left = [f for f in os.listdir(work_dir) if f.startswith(f"{vid}.")
+            and f[len(str(vid)):] in family]
+    check(not left, f"{kind} destroy left {left}")
+    for f in os.listdir(work_dir):
+        if f.startswith(f"{vid}."):
+            os.remove(os.path.join(work_dir, f))
+
+    res["encode_gbps"] = dat_size / res["encode_s"] / 1e9
+    print(f"{tag} encode_volume_to_ec of {dat_size} B: {res['encode_s']:.2f} "
+          f"s, {res['encode_gbps']:.2f} GB/s of .dat  [{card}]")
+    print(f"{tag} degraded read_needle x{res['degraded_reads']} through "
+          f"EcVolume + load_shard ({res['degraded_distinct_needles']} "
+          f"distinct, shards {gone} gone): p50 {res['degraded_p50_ms']:.3f} "
+          f"ms, p99 {res['degraded_p99_ms']:.3f} ms, payloads equal  [{card}]")
+    print(f"{tag} after 10 deletes: file_count {res['file_count']}, "
+          f"deleted_count {res['deleted_count']}; decode_ec_to_volume "
+          f"{res['decode_s']:.2f} s, .dat byte-identical; destroy left no "
+          f"file of the family  [{card}]")
+    return res
+
+
+def phase_serving(card, work_dir, device, lrc_bytes=1 << 30,
+                  other_bytes=256 * MIB, reads=300):
+    """The serving binding (seaweedfs_tpu_torch.serving.bind) driven as the
+    volume server's EC RPCs and its store drive it: LRC(10,2,2), what
+    `ec.encode -kind lrc -lrcLocals 2` asks for, on a 1 GiB volume, then
+    RS(10,4) and Clay(10,4) on `other_bytes` each.  The codec metrics'
+    dispatch counts must equal the dispatches the phase made."""
+    from seaweedfs_tpu_torch import serving
+    from seaweedfs_tpu_torch.ops.codec import codec_metrics
+    bound = serving.bind(device)
+    mets = codec_metrics()
+    # RSCodec's executor label: the kernel on the card, its plain version
+    # on the CPU
+    labels = {"rs": "rs_cuda" if bound.device.type == "cuda" else "rs_torch",
+              "clay": "clay", "lrc": "lrc"}
+    keys = [(b, op) for b in labels.values()
+            for op in ("encode", "reconstruct")]
+    before = {lb: mets.dispatch.value(*lb) for lb in keys}
+    expected = dict.fromkeys(keys, 0)
+    t0 = time.perf_counter()
+    res = {kind: serve_volume(bound, card, work_dir, kind, labels[kind], vid,
+                              size, reads, seed, expected)
+           for kind, vid, size, seed in (("lrc", 21, lrc_bytes, 7),
+                                         ("rs", 22, other_bytes, 9),
+                                         ("clay", 23, other_bytes, 11))}
+    res["s"] = time.perf_counter() - t0
+    got = {lb: mets.dispatch.value(*lb) - before[lb] for lb in keys}
+    res["dispatches"] = {f"{b}/{op}": [got[(b, op)], expected[(b, op)]]
+                         for b, op in keys}
+    text = mets.registry.render()
+    for line in text.splitlines():
+        if line.startswith("seaweedfs_codec_dispatch_total"):
+            print(f"[serving] /metrics: {line}")
+    for lb in keys:
+        check(got[lb] == expected[lb],
+              f"codec metrics count {got[lb]} {lb} dispatches, the phase "
+              f"made {expected[lb]}")
+    print(f"[serving] codec dispatches (counted, made): {res['dispatches']}; "
+          f"phase {res['s']:.1f} s  [{card}]")
+    return res
+
+
 def work_dir_for(volume_bytes: int) -> str:
     """/dev/shm when it has 4x the volume free, else the temp dir."""
     shm = "/dev/shm"
@@ -1007,6 +1268,7 @@ def main() -> int:
     # 4. RS on-disk main path and its fleet forms, launches counted from
     # zero; then one more encode of the same volume under the profiler.
     # 5. the Clay on-disk path and its fleet forms, the same way.
+    # 6. the serving binding: LRC, RS and Clay volumes, the same way.
     work = work_dir_for(2 << 30)
     try:
         codec = RSCodec(device=device)
@@ -1029,6 +1291,16 @@ def main() -> int:
                                            geo=clay_geo, seed=8, lost=(5,))
         encode_launches = clay_cuda.encode_launches.value
         repair_launches = clay_cuda.repair_launches.value
+
+        # 6. the serving binding, every kernel's count from zero
+        for counter in (rs_cuda.launches, clay_cuda.encode_launches,
+                        clay_cuda.repair_launches):
+            counter.reset()
+        serving = phase_serving(card, work, device)
+        serving_launches = {
+            "gf2_matmul": rs_cuda.launches.value,
+            "clay_fused_encode": clay_cuda.encode_launches.value,
+            "clay_fused_repair": clay_cuda.repair_launches.value}
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(main_launches > 0, "the RS main path launched the kernel no time")
@@ -1040,46 +1312,54 @@ def main() -> int:
           f"gf2_matmul_cols {clay_fleet['tiled_path_cols_launches']}; in the "
           f"volume-major entry's drive: gf2_matmul_vm "
           f"{fleet['vm_launches']}  [{card}]")
+    for name, n in serving_launches.items():
+        check(n > 0, f"the serving binding launched {name} no time")
+    print(f"[serving] launches through the binding: {serving_launches}  "
+          f"[{card}]")
 
-    # 6. kernels line, card line, result line
+    # 7. kernels line, card line, result line
     pallas = "seaweedfs_tpu/ops/rs_pallas.py"
     csrc = "seaweedfs_tpu_torch/csrc"
 
-    def entry(name, source, line, launches, ms, plain_ms, bound,
+    def entry(name, source, line, launches, spread, plain_ms, bound,
               bound_by):
         held = tally.by_kernel[name]
         return {"name": name, "route": "cuda", "source": f"{csrc}/{source}",
                 "replaces": f"{pallas}:{line}", "launches": launches,
                 "max_abs_err": held["max_abs_err"],
                 "mismatches": held["mismatches"],
-                "compared_bytes": held["compared_bytes"], "ms": ms,
+                "compared_bytes": held["compared_bytes"], "ms": spread["ms"],
+                "ms_min": spread["min"], "ms_p25": spread["p25"],
+                "ms_p75": spread["p75"], "runs": spread["runs"],
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                "library_ms": None}
+                "library_ms": None,
+                "serving_launches": serving_launches.get(name, 0)}
 
     cf = clay_fleet
     kernels = {"kernels": [
         entry("gf2_matmul", "gf2_matmul.cu", 165, main_launches,
-              fleet["encode_ms"], fleet["encode_plain_ms"],
+              fleet["encode_spread"], fleet["encode_plain_ms"],
               fleet["encode_bound_ms"], fleet["encode_bound_by"]),
         entry("gf2_matmul_vm", "gf2_matmul.cu", 101, fleet["vm_launches"],
-              fleet["vm_ms"], fleet["vm_plain_ms"],
+              fleet["vm_spread"], fleet["vm_plain_ms"],
               fleet["encode_bound_ms"], fleet["encode_bound_by"]),
         entry("gf2_matmul_cols", "gf2_matmul.cu", 207,
-              cf["tiled_path_cols_launches"], cf["cols_ms"],
+              cf["tiled_path_cols_launches"], cf["cols_spread"],
               cf["cols_plain_ms"], cf["cols_bound_ms"],
               cf["cols_bound_by"]),
         entry("clay_fused_encode", "clay_fused.cu", 433, encode_launches,
-              cf["encode_ms"], cf["encode_plain_ms"], cf["encode_bound_ms"],
-              cf["encode_bound_by"]),
+              cf["encode_spread"], cf["encode_plain_ms"],
+              cf["encode_bound_ms"], cf["encode_bound_by"]),
         entry("clay_fused_repair", "clay_fused.cu", 533, repair_launches,
-              cf["repair_ms"], cf["repair_plain_ms"], cf["repair_bound_ms"],
-              cf["repair_bound_by"]),
+              cf["repair_spread"], cf["repair_plain_ms"],
+              cf["repair_bound_ms"], cf["repair_bound_by"]),
     ]}
     details = {"card": card, "build_s": build_s, "ptxas": ptxas,
                "fleet": fleet,
                "clay_fleet": clay_fleet, "disk": disk,
                "fleet_disk": fleet_disk, "profile": profiled,
                "clay_disk": clay_disk, "clay_fleet_disk": clay_fleet_disk,
+               "serving": serving, "serving_launches": serving_launches,
                "held_against_plain": tally.by_kernel}
     print("details: " + json.dumps(details))
     print(json.dumps(kernels))

@@ -11,20 +11,97 @@ Accepts/returns numpy uint8; shapes are [k, B] or batched [V, k, B].  Every
 product is one call of the hand-written kernel of ops/rs_cuda.py on the
 GPU (the default device), its plain torch version when the caller asks for
 `device="cpu"`.  `gf_apply` applies an arbitrary GF(2^8) matrix (the clay
-decode matrices) through the bit-plane product on the device.  With no
-device given on a host without CUDA the constructor raises: the codec never
-moves to the CPU by itself.
+and LRC decode matrices, the LRC parity rows) through the bit-plane product
+on the device.  With no device given on a host without CUDA the constructor
+raises: the codec never moves to the CPU by itself.
+
+`codec_metrics()` is the process-wide registry of codec calls that a
+volume server's GET /metrics appends to its page.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
+import time
 from typing import Callable
 
 import numpy as np
 import torch
 
+from ..stats import Registry
 from . import rs_cuda, rs_matrix, rs_torch
+
+
+# -- codec metrics ----------------------------------------------------------
+#
+# One registry per process: every server in it shares the codecs.  Labels
+# name the code family and its executor, `backend` in
+#   rs_cuda   RSCodec on the GPU (the gf2_matmul kernel)
+#   rs_torch  RSCodec on device="cpu" (the kernel's plain torch version)
+#   clay      ClayWindowCodec and the clay rebuilds, on either device
+#   lrc       LrcWindowCodec and the LRC rebuild, on either device
+# and `op` in encode / reconstruct.
+
+# codec calls span ~ms on the device to seconds on the CPU; the default
+# request buckets would put everything in two of them
+_CODEC_BUCKETS = [0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0]
+
+
+class _CodecMetrics:
+    def __init__(self):
+        self.registry = Registry()
+        self.seconds = self.registry.histogram(
+            "seaweedfs_codec_op_seconds",
+            "EC codec call wall time, dispatch through fetch",
+            ["backend", "op"], buckets=_CODEC_BUCKETS)
+        self.bytes = self.registry.counter(
+            "seaweedfs_codec_bytes_total",
+            "payload bytes processed by the EC codec",
+            ["backend", "op"])
+        # volumes_total / dispatch_total is the fleet encode's batching
+        # factor: how many volumes one device round carries
+        self.dispatch = self.registry.counter(
+            "seaweedfs_codec_dispatch_total",
+            "EC codec dispatches (one backend call each)",
+            ["backend", "op"])
+        self.dispatch_volumes = self.registry.counter(
+            "seaweedfs_codec_dispatch_volumes_total",
+            "volumes carried by EC codec dispatches",
+            ["backend", "op"])
+
+    def observe(self, backend: str, op: str, nbytes: int,
+                seconds: float, volumes: int = 1) -> None:
+        self.seconds.observe(backend, op, value=seconds)
+        self.bytes.inc(backend, op, value=float(nbytes))
+        self.dispatch.inc(backend, op)
+        self.dispatch_volumes.inc(backend, op, value=float(volumes))
+
+
+_codec_metrics: "_CodecMetrics | None" = None
+_codec_metrics_lock = threading.Lock()
+
+
+def codec_metrics() -> _CodecMetrics:
+    global _codec_metrics
+    with _codec_metrics_lock:
+        if _codec_metrics is None:
+            _codec_metrics = _CodecMetrics()
+        return _codec_metrics
+
+
+def metered_fetch(fetch, backend: str, op: str, nbytes: int, t0: float,
+                  volumes: int = 1):
+    """Wrap an async codec fetch() so the span from issue (`t0`) to the
+    fetch's return lands in the codec metrics: the window the pipelined
+    disk loops wait on (h2d, kernels, d2h).  `volumes` is how many volumes
+    this one dispatch carried."""
+    def timed():
+        out = fetch()
+        codec_metrics().observe(backend, op, nbytes,
+                                time.perf_counter() - t0, volumes=volumes)
+        return out
+    return timed
 
 
 def resolve_device(device=None) -> torch.device:
@@ -128,6 +205,8 @@ class RSCodec:
                  parity_shards: int = rs_matrix.DEFAULT_PARITY_SHARDS,
                  *, kind: str = "vandermonde", device=None):
         self.device = resolve_device(device)
+        # the executor in the metrics' backend label, rs_cuda / rs_torch
+        self.backend = "cuda" if self.device.type == "cuda" else "torch"
         self.k = data_shards
         self.m = parity_shards
         self.n = data_shards + parity_shards
@@ -147,16 +226,22 @@ class RSCodec:
                                      tuple(present), tuple(targets),
                                      self.device)
 
-    def _matmul_begin(self, planes: torch.Tensor, inputs: np.ndarray):
-        """Issue out = M ∘GF∘ inputs[..., KI, B]; returns fetch() -> numpy.
-        See device_call_begin for the stream and fetch() contract."""
+    def _matmul_begin(self, planes: torch.Tensor, inputs: np.ndarray,
+                      op: str):
+        """Issue out = M ∘GF∘ inputs[..., KI, B]; returns fetch() -> numpy,
+        metered as `op`.  See device_call_begin for the stream and fetch()
+        contract."""
+        t0 = time.perf_counter()
         if self._stream is not None:
             # the decode-matrix cache may drop `planes` while the stream
             # reads it
             planes.record_stream(self._stream)
-        return device_call_begin(
+        fetch = device_call_begin(
             self.device, self._stream, inputs,
             lambda x: rs_cuda.gf_matmul_bits_cuda(planes, x))
+        volumes = int(np.prod(inputs.shape[:-2])) if inputs.ndim > 2 else 1
+        return metered_fetch(fetch, f"rs_{self.backend}", op, inputs.nbytes,
+                             t0, volumes=volumes)
 
     # -- public API ------------------------------------------------------
     def encode(self, data: np.ndarray) -> np.ndarray:
@@ -169,7 +254,7 @@ class RSCodec:
         if data.ndim not in (2, 3) or data.shape[-2] != self.k:
             raise ValueError(f"expected [{self.k}, B] or [V, {self.k}, B] "
                              f"data, got {data.shape}")
-        return self._matmul_begin(self.parity_planes, data)
+        return self._matmul_begin(self.parity_planes, data, "encode")
 
     def reconstruct(self, shards: list[np.ndarray | None], *,
                     data_only: bool = False) -> list[np.ndarray]:
@@ -197,7 +282,7 @@ class RSCodec:
         planes = self.decode_planes(tuple(present), tuple(targets))
         chosen = np.stack([np.asarray(shards[i], dtype=np.uint8)
                            for i in present[:self.k]], axis=-2)
-        raw = self._matmul_begin(planes, chosen)
+        raw = self._matmul_begin(planes, chosen, "reconstruct")
 
         def fetch():
             rec = raw()

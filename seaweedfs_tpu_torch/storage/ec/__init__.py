@@ -1,5 +1,6 @@
-"""Erasure coding subsystem — RS(k,m) and Clay striping of sealed volumes
-onto shard files, with GPU-batched encode/rebuild and degraded reads.
+"""Erasure coding subsystem — RS(k,m), Clay and LRC striping of sealed
+volumes onto shard files, with GPU-batched encode/rebuild and degraded
+reads.
 
 File family per volume (reference weed/storage/erasure_coding/):
   .ec00-.ec13  shard files (data 0..k-1, parity k..n-1)
@@ -17,7 +18,7 @@ from .decoder import (find_dat_file_size, read_ec_volume_version,
                       write_dat_file, write_idx_file_from_ec_index)
 from .ec_volume import (EcNotFoundError, EcShardUnavailableError, EcVolume,
                         EcVolumeShard, rebuild_ecx_file)
-from .codes import ClayWindowCodec
+from .codes import ClayWindowCodec, LrcWindowCodec
 from .encoder import (Codec, encode_ec_files_batch, rebuild_ec_files,
                       rebuild_ec_files_batch, write_ec_files,
                       write_sorted_file_from_idx)

@@ -1,10 +1,10 @@
 """Beyond-RS erasure codes over the same shard-file layout: Clay, the MSR
-regenerating code.
+regenerating code, and LRC, the locally repairable code.
 
 `EcGeometry.code_kind` selects the family; shard file names, .ecx, the
 locate math, mounting and reads are unchanged, because the codes are
 systematic: data shards are byte-identical to RS's.  Only parity
-generation and rebuild differ.  LRC is not ported yet and raises.
+generation and rebuild differ.
 
 Symbol layout (clay): every `small_block_size` window of a shard is
 [alpha, small/alpha] layer-major — layer z of window w occupies bytes
@@ -13,40 +13,85 @@ reads only the beta = alpha/q plane layers of each helper window — real
 partial-range file reads, 1/q of the repair IO of RS at the same storage
 overhead.
 
-Execution: the encode and the single-loss repair each run as one launch of
-a fused kernel (ops/clay_structured.py over csrc/clay_fused.cu); a
-multi-loss rebuild and a degraded read apply a flat decode matrix from the
-numpy oracle (ops/clay_matrix.py) through codec.gf_apply on the device.
+Execution: the clay encode and single-loss repair each run as one launch of
+a fused kernel (ops/clay_structured.py over csrc/clay_fused.cu); a clay
+multi-loss rebuild, a clay degraded read and every LRC product apply a
+matrix from the numpy oracles (ops/clay_matrix.py, ops/lrc.py) through
+codec.gf_apply on the device.  LRC is scalar per byte column like RS, so
+its advantage lives in the rebuild planner (lrc.plan_repair): a single loss
+reads one local group.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
 
-from ...ops import clay_matrix, clay_structured
-from ...ops.codec import device_call_begin, gf_apply, resolve_device
+from ...ops import clay_matrix, clay_structured, lrc
+from ...ops.codec import (codec_metrics, device_call_begin, gf_apply,
+                          metered_fetch, resolve_device)
 from .layout import EcGeometry, to_ext
+
+CODE_KINDS = ("rs", "clay", "lrc")
 
 
 def require_ported(geo: EcGeometry) -> None:
-    """Raise for a code kind the port does not run (LRC)."""
-    if geo.code_kind == "lrc":
-        raise NotImplementedError(
-            "the LRC code is not ported yet (ROADMAP Queue 1 item 6)")
-    if geo.code_kind not in ("rs", "clay"):
-        raise NotImplementedError(f"unknown code kind {geo.code_kind!r}")
+    """Raise for a code kind neither package knows."""
+    if geo.code_kind not in CODE_KINDS:
+        raise ValueError(f"unknown code_kind {geo.code_kind!r}")
 
 
-def window_codec_for(geo: EcGeometry) -> "ClayWindowCodec":
-    """The encode codec write_ec_files uses for non-RS kinds, on the
-    default device."""
+def window_codec_for(geo: EcGeometry, *, device=None):
+    """The encode codec write_ec_files uses for non-RS kinds, on `device`
+    (CUDA unless the caller names another)."""
     require_ported(geo)
-    if geo.code_kind != "clay":
-        raise ValueError(f"{geo.code_kind!r} has no window codec")
-    return ClayWindowCodec(geo)
+    if geo.code_kind == "clay":
+        return ClayWindowCodec(geo, device=device)
+    if geo.code_kind == "lrc":
+        return LrcWindowCodec(geo, device=device)
+    raise ValueError(f"{geo.code_kind!r} has no window codec")
+
+
+def lrc_geometry(geo: EcGeometry) -> lrc.LrcGeometry:
+    if not geo.lrc_locals or geo.data_shards % geo.lrc_locals:
+        raise ValueError(
+            f"lrc needs lrc_locals dividing k: k={geo.data_shards} "
+            f"l={geo.lrc_locals}")
+    return lrc.LrcGeometry(k=geo.data_shards, l=geo.lrc_locals,
+                           r=geo.parity_shards - geo.lrc_locals)
+
+
+class LrcWindowCodec:
+    """LRC encode on one device: the [l + r, k] parity rows of the
+    generator applied to [k, W] data through gf_apply (the bit-plane
+    product).  Runs on CUDA unless the caller names another device."""
+
+    def __init__(self, geo: EcGeometry, *, device=None):
+        self.geo = geo
+        self.lgeo = lrc_geometry(geo)
+        self.k = geo.data_shards
+        self.m = geo.parity_shards
+        self.device = resolve_device(device)
+        self.parity_rows = np.ascontiguousarray(
+            lrc.generator_matrix(self.lgeo)[self.k:])
+
+    def encode(self, data: np.ndarray) -> np.ndarray:
+        return self.encode_begin(data)()
+
+    def encode_begin(self, data: np.ndarray, *, volumes: int = 1):
+        """Encode data [k, W]; returns fetch() -> parity [m, W].  `volumes`
+        is how many volumes the bytes span (encode_ec_files_batch folds a
+        group onto the byte axis)."""
+        t0 = time.perf_counter()
+        data = np.asarray(data, dtype=np.uint8)
+        if data.ndim != 2 or data.shape[0] != self.k:
+            raise ValueError(f"expected [{self.k}, W] data, got {data.shape}")
+        parity = gf_apply(self.parity_rows, data, device=self.device)
+        return metered_fetch(lambda: parity, "lrc", "encode", data.nbytes,
+                             t0, volumes=volumes)
 
 
 class ClayWindowCodec:
@@ -81,10 +126,12 @@ class ClayWindowCodec:
     def encode(self, data: np.ndarray) -> np.ndarray:
         return self.encode_begin(data)()
 
-    def encode_begin(self, data: np.ndarray):
+    def encode_begin(self, data: np.ndarray, *, volumes: int = 1):
         """Start the encode of data [k, W] (W a multiple of the small
-        block; encode_ec_files_batch folds volumes onto this byte axis)
-        asynchronously; returns fetch() -> parity [m, W]."""
+        block) asynchronously; returns fetch() -> parity [m, W].
+        `volumes` is how many volumes the bytes span (encode_ec_files_batch
+        folds a group onto the byte axis)."""
+        t0 = time.perf_counter()
         data = np.asarray(data, dtype=np.uint8)
         small = self.geo.small_block_size
         if data.ndim != 2 or data.shape[0] != self.k \
@@ -92,10 +139,12 @@ class ClayWindowCodec:
             raise ValueError(f"expected [{self.k}, n * {small}] window "
                              f"bytes, got {data.shape}")
         self._hold_planes(None)
-        return device_call_begin(
+        fetch = device_call_begin(
             self.device, self._stream, data,
             lambda d: clay_structured.encode_device(self.k, self.m, d,
                                                     small=small))
+        return metered_fetch(fetch, "clay", "encode", data.nbytes, t0,
+                             volumes=volumes)
 
     def repair(self, lost: int, x4: np.ndarray) -> np.ndarray:
         """The lost shard's windows [n_win, alpha, w_a] from the helpers'
@@ -109,6 +158,43 @@ class ClayWindowCodec:
 
 # -- rebuild ---------------------------------------------------------------
 
+def rebuild_lrc(base_path: str, geo: EcGeometry, missing: list[int],
+                batch_bytes: int, codec: LrcWindowCodec,
+                stats: "dict | None" = None) -> list[int]:
+    """LRC rebuild: the planner picks the cheapest read set, one local
+    group for a single loss (k/l reads instead of k), a global solve
+    otherwise; each window is one gf_apply on the codec's device."""
+    t0 = time.perf_counter()
+    n = geo.total_shards
+    have = [os.path.exists(base_path + to_ext(i)) for i in range(n)]
+    plan = lrc.plan_repair(codec.lgeo, missing,
+                           available=[i for i in range(n) if have[i]])
+    inputs = {i: np.memmap(base_path + to_ext(i), dtype=np.uint8,
+                           mode="r") for i in plan.read_shards}
+    shard_size = len(next(iter(inputs.values())))
+    outputs = {i: open(base_path + to_ext(i), "wb") for i in missing}
+    bytes_read = 0
+    try:
+        for off in range(0, shard_size, batch_bytes):
+            width = min(batch_bytes, shard_size - off)
+            x = np.stack([np.asarray(inputs[i][off:off + width])
+                          for i in plan.read_shards])
+            bytes_read += x.size
+            rec = gf_apply(plan.matrix, x, device=codec.device)
+            for row, t in enumerate(plan.missing):
+                outputs[t].write(rec[row].tobytes())
+    finally:
+        for f in outputs.values():
+            f.close()
+    codec_metrics().observe("lrc", "reconstruct", bytes_read,
+                            time.perf_counter() - t0)
+    if stats is not None:
+        stats["bytes_read"] = bytes_read
+        stats["read_shards"] = list(plan.read_shards)
+        stats["plan_kind"] = plan.kind
+    return missing
+
+
 def rebuild_clay(base_path: str, geo: EcGeometry, missing: list[int],
                  batch_bytes: int, codec: ClayWindowCodec,
                  stats: "dict | None" = None) -> list[int]:
@@ -116,6 +202,7 @@ def rebuild_clay(base_path: str, geo: EcGeometry, missing: list[int],
     beta plane layers of every helper window (beta/alpha = 1/q of each
     helper's bytes) into the fused repair kernel.  Multi-loss: flat decode
     from k full survivors through gf_apply."""
+    t0 = time.perf_counter()
     k, m = geo.data_shards, geo.parity_shards
     n = geo.total_shards
     small = geo.small_block_size
@@ -147,6 +234,8 @@ def rebuild_clay(base_path: str, geo: EcGeometry, missing: list[int],
                     x4[hi] = span.reshape(wn, alpha, win_a)[:, plane_idx]
                 bytes_read += x4.size
                 out.write(codec.repair(lost, x4).tobytes())
+        codec_metrics().observe("clay", "reconstruct", bytes_read,
+                                time.perf_counter() - t0)
         if stats is not None:
             stats["bytes_read"] = bytes_read
             stats["plan_kind"] = "clay-plane-fused"
@@ -181,6 +270,8 @@ def rebuild_clay(base_path: str, geo: EcGeometry, missing: list[int],
     finally:
         for f in outputs.values():
             f.close()
+    codec_metrics().observe("clay", "reconstruct", bytes_read,
+                            time.perf_counter() - t0)
     if stats is not None:
         stats["bytes_read"] = bytes_read
         stats["plan_kind"] = "clay-decode"

@@ -12,8 +12,8 @@ ec_shard.go:17-93 and the read/recover path of weed/storage/store_ec.go:
   local shard when present, a remote shard via the pluggable `remote_reader`,
   or — degraded path — reconstructed on the fly from >= k other shards in
   ONE batched codec call (store_ec.go:125-382, recoverOneRemoteEcShardInterval).
-
-Reed-Solomon and Clay volumes are served; an LRC volume raises.
+  Clay decodes whole windows; LRC reads the repair plan's shards, one local
+  group for a single loss.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import Callable
 
 import numpy as np
 
-from ...ops import clay_matrix
+from ...ops import clay_matrix, lrc
 from ...ops.codec import gf_apply
 from .. import types as t
 from ..idx import parse_index_bytes
@@ -47,6 +47,14 @@ class EcShardUnavailableError(Exception):
 RemoteShardReader = Callable[[int, int, int, int], "bytes | None"]
 
 
+def volume_base(directory: str, collection: str, vid: int) -> str:
+    """<dir>/<collection>_<vid>, or <dir>/<vid> without a collection: the
+    path of a volume's files without their extension."""
+    if collection:
+        return os.path.join(directory, f"{collection}_{vid}")
+    return os.path.join(directory, str(vid))
+
+
 class EcVolumeShard:
     """One local .ecNN file (ec_shard.go:17-93)."""
 
@@ -61,10 +69,7 @@ class EcVolumeShard:
         self.size = os.path.getsize(self.path)
 
     def file_name(self) -> str:
-        if self.collection:
-            return os.path.join(self.directory,
-                                f"{self.collection}_{self.volume_id}")
-        return os.path.join(self.directory, str(self.volume_id))
+        return volume_base(self.directory, self.collection, self.volume_id)
 
     def read_at(self, size: int, offset: int) -> bytes:
         # positional IO: concurrent readers must never seek-race
@@ -72,6 +77,10 @@ class EcVolumeShard:
 
     def close(self) -> None:
         self._f.close()
+
+    def destroy(self) -> None:
+        self.close()
+        os.remove(self.path)
 
 
 class EcVolume:
@@ -116,10 +125,7 @@ class EcVolume:
             self._tombstone_in_memory(key)
 
     def _base(self) -> str:
-        if self.collection:
-            return os.path.join(self.directory,
-                                f"{self.collection}_{self.volume_id}")
-        return os.path.join(self.directory, str(self.volume_id))
+        return volume_base(self.directory, self.collection, self.volume_id)
 
     # -- shard management --------------------------------------------------
     def add_shard(self, shard_id: int) -> EcVolumeShard:
@@ -128,6 +134,10 @@ class EcVolume:
                 self.shards[shard_id] = EcVolumeShard(
                     self.directory, self.collection, self.volume_id, shard_id)
             return self.shards[shard_id]
+
+    # the name the store loads shards by (disk_location_ec.go)
+    def load_shard(self, shard_id: int) -> EcVolumeShard:
+        return self.add_shard(shard_id)
 
     def delete_shard(self, shard_id: int) -> None:
         with self._lock:
@@ -225,9 +235,12 @@ class EcVolume:
                               size: int) -> bytes:
         """Degraded read: gather [offset, offset+size) from >= k other
         shards, reconstruct the missing one in a single codec call
-        (recoverOneRemoteEcShardInterval store_ec.go:328-382).  Clay
-        decodes whole alpha-layer windows instead (see
-        _reconstruct_interval_clay)."""
+        (recoverOneRemoteEcShardInterval store_ec.go:328-382).  LRC reads
+        the repair plan's shards (_reconstruct_interval_lrc); clay decodes
+        whole alpha-layer windows (_reconstruct_interval_clay)."""
+        if self.geo.code_kind == "lrc":
+            return self._reconstruct_interval_lrc(missing_shard, offset,
+                                                  size)
         if self.geo.code_kind == "clay":
             return self._reconstruct_interval_clay(missing_shard, offset,
                                                    size)
@@ -246,6 +259,40 @@ class EcVolume:
                 f"vol {self.volume_id} shard {missing_shard}: only {got} "
                 f"shards reachable, need {self.geo.data_shards}")
         return self.codec.reconstruct(shards)[missing_shard].tobytes()
+
+    def _reconstruct_interval_lrc(self, missing_shard: int, offset: int,
+                                  size: int) -> bytes:
+        """LRC is scalar, so exact intervals are read from the repair
+        plan's shards: one local group for a single loss.  If a group
+        member does not answer either, every shard is probed and the
+        repair re-planned globally over those that answered."""
+        lgeo = self.codec.lgeo
+        plan = lrc.plan_repair(lgeo, [missing_shard])
+        rows = []
+        for sid in plan.read_shards:
+            raw = self._read_local_or_remote(sid, offset, size)
+            if raw is None or len(raw) != size:
+                rows = None
+                break
+            rows.append(np.frombuffer(raw, dtype=np.uint8))
+        if rows is None:
+            got: dict[int, np.ndarray] = {}
+            for sid in range(self.geo.total_shards):
+                if sid == missing_shard:
+                    continue
+                raw = self._read_local_or_remote(sid, offset, size)
+                if raw is not None and len(raw) == size:
+                    got[sid] = np.frombuffer(raw, dtype=np.uint8)
+            try:
+                plan = lrc.plan_repair(lgeo, [missing_shard],
+                                       available=sorted(got))
+            except ValueError as e:
+                raise EcShardUnavailableError(
+                    f"vol {self.volume_id} shard {missing_shard}: "
+                    f"{e}") from None
+            rows = [got[sid] for sid in plan.read_shards]
+        out = gf_apply(plan.matrix, np.stack(rows), device=self.codec.device)
+        return out[0].tobytes()
 
     def _reconstruct_interval_clay(self, missing_shard: int, offset: int,
                                    size: int) -> bytes:
@@ -306,12 +353,31 @@ class EcVolume:
             raise EcNotFoundError(f"cookie mismatch for {needle_id:x}")
         return n
 
+    # -- maintenance -------------------------------------------------------
+    def file_count(self) -> int:
+        return int((self._sizes != t.TOMBSTONE_FILE_SIZE).sum())
+
+    def deleted_count(self) -> int:
+        return int((self._sizes == t.TOMBSTONE_FILE_SIZE).sum())
+
     def close(self) -> None:
         with self._lock:
             self._ecx_rw.close()
             for s in self.shards.values():
                 s.close()
             self.shards.clear()
+
+    def destroy(self) -> None:
+        """Close and remove every file of this EC volume: .ecx, .ecj, .vif
+        and every shard file of the family, loaded here or not
+        (ec_volume.go Destroy)."""
+        with self._lock:
+            self.close()
+            base = self._base()
+            for ext in [".ecx", ".ecj", ".vif"] + [
+                    to_ext(s) for s in range(self.geo.total_shards)]:
+                if os.path.exists(base + ext):
+                    os.remove(base + ext)
 
 
 def rebuild_ecx_file(base_path: str) -> None:

@@ -10,15 +10,14 @@ Capability-equivalent to weed/storage/erasure_coding/ec_encoder.go
   buffer; only parity costs compute.
 - Rebuild reads all surviving shards' aligned windows into a [n_have, B]
   batch and reconstructs every missing shard in one codec call per window.
-- Clay geometries (`code_kind="clay"`) take the window codec and rebuild of
-  storage/ec/codes.py: the same shard files, other parity math.
+- Clay and LRC geometries (`code_kind="clay"` / `"lrc"`) take the window
+  codecs and rebuilds of storage/ec/codes.py: the same shard files, other
+  parity math.
 
 One deliberate divergence: the reference encodes a .dat whose size is an
 exact multiple of the large row as small blocks (`>` at ec_encoder.go:215)
 but *decodes* it as large blocks (`>=` at ec_decoder.go:175) — an
 inconsistent edge.  We use `>=` on both sides so every size round-trips.
-
-Reed-Solomon and Clay geometries are ported; an LRC geometry raises.
 """
 
 from __future__ import annotations
@@ -34,8 +33,8 @@ import numpy as np
 from ...ops.codec import RSCodec
 from ..idx import index_array_to_bytes, parse_index_bytes
 from ..types import TOMBSTONE_FILE_SIZE
-from .codes import (ClayWindowCodec, rebuild_clay, require_ported,
-                    window_codec_for)
+from .codes import (ClayWindowCodec, LrcWindowCodec, rebuild_clay,
+                    rebuild_lrc, require_ported, window_codec_for)
 from .layout import DEFAULT_GEOMETRY, EcGeometry, to_ext
 
 # Per-shard bytes fed to one codec call: 8 MB x 10 shards = 80 MB reads.
@@ -88,26 +87,31 @@ def _pipelined(produce, consume) -> None:
         raise errs[0]
 
 
-Codec = Union[RSCodec, ClayWindowCodec]
+Codec = Union[RSCodec, ClayWindowCodec, LrcWindowCodec]
+_CODEC_CLASS = {"rs": RSCodec, "clay": ClayWindowCodec, "lrc": LrcWindowCodec}
 
 
-def codec_for(geo: EcGeometry, codec: "Codec | None" = None) -> "Codec":
+def codec_for(geo: EcGeometry, codec: "Codec | None" = None, *,
+              device=None) -> "Codec":
     """The caller's codec, checked against the geometry, or a new one for
-    it on the default device: RSCodec for RS, ClayWindowCodec for clay."""
+    it on `device` (CUDA unless the caller names another): RSCodec for RS,
+    the window codecs of codes.py for clay and LRC."""
     require_ported(geo)
-    cls = ClayWindowCodec if geo.code_kind == "clay" else RSCodec
-    if codec is not None:
-        if not isinstance(codec, cls):
-            raise ValueError(f"a {type(codec).__name__} cannot code a "
-                             f"{geo.code_kind!r} geometry")
-        if (codec.k, codec.m) != (geo.data_shards, geo.parity_shards) or (
-                cls is ClayWindowCodec and codec.geo.small_block_size
-                != geo.small_block_size):   # the clay symbol windows
-            raise ValueError("codec geometry does not match EC geometry")
-        return codec
-    if cls is ClayWindowCodec:
-        return window_codec_for(geo)
-    return RSCodec(geo.data_shards, geo.parity_shards)
+    cls = _CODEC_CLASS[geo.code_kind]
+    if codec is None:
+        if cls is RSCodec:
+            return RSCodec(geo.data_shards, geo.parity_shards, device=device)
+        return window_codec_for(geo, device=device)
+    if not isinstance(codec, cls):
+        raise ValueError(f"a {type(codec).__name__} cannot code a "
+                         f"{geo.code_kind!r} geometry")
+    if (codec.k, codec.m) != (geo.data_shards, geo.parity_shards) or (
+            cls is ClayWindowCodec and codec.geo.small_block_size
+            != geo.small_block_size) or (    # the clay symbol windows
+            cls is LrcWindowCodec and codec.geo.lrc_locals
+            != geo.lrc_locals):             # the LRC local groups
+        raise ValueError("codec geometry does not match EC geometry")
+    return codec
 
 
 class _BufferPool:
@@ -274,8 +278,12 @@ def _encode_group(bases: list[str], geo: EcGeometry,
                     "same-shard-size volumes must batch in lockstep")
             # stack/concatenate COPY out of the per-volume cycled pools,
             # so the yielded batch stays valid in the pipeline
-            data = np.stack(parts) if rs else np.concatenate(parts, axis=1)
-            yield data, codec.encode_begin(data)
+            if rs:     # RSCodec counts the volumes on the leading axis
+                data = np.stack(parts)
+                yield data, codec.encode_begin(data)
+            else:
+                data = np.concatenate(parts, axis=1)
+                yield data, codec.encode_begin(data, volumes=v)
 
     def consume(item):
         data, fetch = item
@@ -307,8 +315,9 @@ def rebuild_ec_files(base_path: str, geo: "EcGeometry | None" = None,
     (RebuildEcFiles ec_encoder.go:61/233).  Returns rebuilt shard ids.
 
     `stats`, when given, is filled with the rebuild's read accounting
-    ({"bytes_read", "plan_kind", ...}): how clay's repair-IO advantage is
-    measured.  Clay volumes take codes.rebuild_clay."""
+    ({"bytes_read", "plan_kind", ...}): how the clay and LRC repair-IO
+    advantages are measured.  Clay and LRC volumes take codes.rebuild_clay
+    and codes.rebuild_lrc."""
     if geo is None:
         from . import geometry_from_vif
         geo = geometry_from_vif(base_path)
@@ -324,6 +333,9 @@ def rebuild_ec_files(base_path: str, geo: "EcGeometry | None" = None,
     if geo.code_kind == "clay":
         return rebuild_clay(base_path, geo, missing, batch_bytes, codec,
                             stats=stats)
+    if geo.code_kind == "lrc":
+        return rebuild_lrc(base_path, geo, missing, batch_bytes, codec,
+                           stats=stats)
     inputs = {i: np.memmap(base_path + to_ext(i), dtype=np.uint8, mode="r")
               for i in range(n) if have[i]}
     shard_size = len(next(iter(inputs.values())))
@@ -369,8 +381,10 @@ def rebuild_ec_files_batch(base_paths: list[str],
 
     RS volumes sharing (geometry, loss mask, shard size) stack onto the
     codec's leading batch axis and every window is ONE device round for the
-    whole group.  Odd-one-out volumes take the single path, and clay
-    volumes rebuild one by one (their reduced-IO repair in codes.py).
+    whole group.  Odd-one-out volumes take the single path, and clay and
+    LRC volumes rebuild one by one (their reduced-IO repairs in codes.py).
+    The caller's `codec` serves the RS volumes; the other kinds get codecs
+    of their own on its device (the default device without one).
     Returns {base_path: rebuilt shard ids}."""
     from . import geometry_from_vif
     groups: dict[tuple, list[str]] = {}
@@ -389,10 +403,13 @@ def rebuild_ec_files_batch(base_paths: list[str],
         groups.setdefault((geo, have, size), []).append(base)
 
     out: dict[str, list[int]] = {b: [] for b in base_paths}
+    device = codec.device if codec is not None else None
     for (geo, have, shard_size), bases in groups.items():
         if len(bases) == 1 or geo.code_kind != "rs":
+            kind_codec = codec if geo.code_kind == "rs" \
+                else codec_for(geo, device=device)
             for b in bases:
-                out[b] = rebuild_ec_files(b, geo, codec=codec,
+                out[b] = rebuild_ec_files(b, geo, codec=kind_codec,
                                           batch_bytes=batch_bytes)
             continue
         n = geo.total_shards

@@ -39,8 +39,7 @@ class EcGeometry:
     `code_kind` names the erasure code family (beyond the reference's
     fixed RS): "rs" (default), "clay" (MSR regenerating code) or "lrc"
     (local reconstruction code; parity_shards = lrc_locals local XORs +
-    globals).  "rs" and "clay" are ported; the encoder and EcVolume raise
-    for "lrc".  Data shards are byte-identical across kinds (all are
+    globals).  Data shards are byte-identical across kinds (all are
     systematic), so the locate math never consults the kind."""
     data_shards: int = DATA_SHARDS_COUNT
     parity_shards: int = PARITY_SHARDS_COUNT

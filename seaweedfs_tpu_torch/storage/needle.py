@@ -23,11 +23,13 @@ from . import types as t
 from .crc import crc32c, masked_value
 from .ttl import TTL
 
+FLAG_IS_COMPRESSED = 0x01
 FLAG_HAS_NAME = 0x02
 FLAG_HAS_MIME = 0x04
 FLAG_HAS_LAST_MODIFIED_DATE = 0x08
 FLAG_HAS_TTL = 0x10
 FLAG_HAS_PAIRS = 0x20
+FLAG_IS_CHUNK_MANIFEST = 0x80
 
 LAST_MODIFIED_BYTES_LENGTH = 5
 TTL_BYTES_LENGTH = 2
@@ -59,6 +61,12 @@ class Needle:
     append_at_ns: int = 0
 
     # -- flags ------------------------------------------------------------
+    def is_compressed(self) -> bool:
+        return bool(self.flags & FLAG_IS_COMPRESSED)
+
+    def set_is_compressed(self) -> None:
+        self.flags |= FLAG_IS_COMPRESSED
+
     def has_name(self) -> bool:
         return bool(self.flags & FLAG_HAS_NAME)
 
@@ -97,6 +105,12 @@ class Needle:
         self.pairs = pairs
         if pairs:
             self.flags |= FLAG_HAS_PAIRS
+
+    def is_chunked_manifest(self) -> bool:
+        return bool(self.flags & FLAG_IS_CHUNK_MANIFEST)
+
+    def etag(self) -> str:
+        return struct.pack(">I", self.checksum).hex()
 
     # -- serialization ----------------------------------------------------
     def _body_size_v2(self) -> int:

@@ -269,14 +269,138 @@ def test_decode_to_volume_round_trips(twin_volumes, codec, ref_codec):
     v.close()
 
 
-@pytest.mark.parametrize("kind", ["lrc"])
+@pytest.mark.parametrize("kind", ["bogus"])
 def test_unported_code_kinds_raise(tmp_path, codec, kind):
-    geo = EcGeometry(code_kind=kind, lrc_locals=2 if kind == "lrc" else 0)
+    """A code kind neither package knows raises, in both."""
     base = str(tmp_path / "7")
     with open(base + ".dat", "wb") as f:
         f.write(b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ec.write_ec_files(base, geo)
+    with pytest.raises(ValueError, match="unknown code_kind"):
+        ec.write_ec_files(base, EcGeometry(code_kind=kind))
+    with pytest.raises(ValueError, match="unknown code_kind"):
+        ref_ec.write_ec_files(base, ref_ec.EcGeometry(code_kind=kind))
+
+
+# -- EcVolume's maintenance surface (the store's calls) --------------------
+
+def _public(cls):
+    return sorted(n for n in dir(cls) if not n.startswith("_"))
+
+
+@pytest.mark.parametrize("name", ["EcVolume", "EcVolumeShard"])
+def test_ec_volume_public_methods_match_reference(name):
+    assert _public(getattr(ec, name)) == _public(getattr(ref_ec, name))
+
+
+def test_needle_has_the_methods_the_serving_path_reads():
+    """Every public method of the JAX package's Needle but its file IO
+    (append_to / read_from belong to the volume engine): a volume server
+    reads an EC needle's etag and flags."""
+    assert set(_public(RefNeedle)) - set(_public(Needle)) == \
+        {"append_to", "read_from"}
+    n = Needle(data=b"abc")
+    n.set_is_compressed()
+    ref = RefNeedle(data=b"abc")
+    ref.set_is_compressed()
+    got, want = n.to_bytes(3), ref.to_bytes(3)
+    assert got == want
+    n2, r2 = Needle(), RefNeedle()
+    n2.read_bytes(got, 0, n.size, 3)
+    r2.read_bytes(want, 0, ref.size, 3)
+    assert (n2.etag(), n2.is_compressed(), n2.is_chunked_manifest()) == \
+        (r2.etag(), r2.is_compressed(), r2.is_chunked_manifest())
+
+
+def test_file_and_deleted_counts_match_reference(twin_volumes, codec,
+                                                 ref_codec):
+    ref_dir, port_dir, needles = twin_volumes
+    ref_base, base = os.path.join(ref_dir, "7"), os.path.join(port_dir, "7")
+    ref_ec.encode_volume_to_ec(ref_base, 3, REF_GEO, ref_codec)
+    ec.encode_volume_to_ec(base, 3, GEO, codec)
+    ev = ec.EcVolume(port_dir, "", 7, codec=codec)
+    ref_ev = ref_ec.EcVolume(ref_dir, "", 7, REF_GEO, ref_codec)
+    rng = np.random.default_rng(3)
+    victims = [int(v) for v in rng.choice(sorted(needles), 7,
+                                          replace=False)]
+    # a repeat and an id the volume never held count nothing more
+    for nid in victims + victims[:2] + [10 ** 9]:
+        ev.delete_needle(nid)
+        ref_ev.delete_needle(nid)
+        assert (ev.file_count(), ev.deleted_count()) == \
+            (ref_ev.file_count(), ref_ev.deleted_count())
+    assert ev.deleted_count() == len(victims)
+    assert ev.file_count() == len(needles) - len(victims)
+    ev.close()
+    ref_ev.close()
+
+
+def test_destroy_removes_every_file_of_the_family(twin_volumes, codec,
+                                                  ref_codec):
+    """destroy removes .ecx, .ecj, .vif and every shard file, loaded or
+    not, and leaves the same files behind as the JAX package's."""
+    ref_dir, port_dir, needles = twin_volumes
+    for d, pkg, geo, c in ((port_dir, ec, GEO, codec),
+                           (ref_dir, ref_ec, REF_GEO, ref_codec)):
+        pkg.encode_volume_to_ec(os.path.join(d, "7"), 3, geo, c)
+        vol = pkg.EcVolume(d, "", 7, geo, c)
+        for s in (0, 5, 13):
+            vol.load_shard(s)
+        vol.delete_needle(sorted(needles)[0])   # writes the .ecj
+        assert os.path.exists(os.path.join(d, "7.ecj"))
+        vol.destroy()
+        assert not vol.shards
+    assert sorted(os.listdir(port_dir)) == sorted(os.listdir(ref_dir)) \
+        == ["7.dat", "7.idx"]
+
+
+def test_shard_destroy_removes_its_file(twin_volumes, codec):
+    _, port_dir, _ = twin_volumes
+    ec.encode_volume_to_ec(os.path.join(port_dir, "7"), 3, GEO, codec)
+    shard = ec.EcVolumeShard(port_dir, "", 7, 4)
+    shard.destroy()
+    assert not os.path.exists(os.path.join(port_dir, "7.ec04"))
+    assert os.path.exists(os.path.join(port_dir, "7.ec05"))
+
+
+# -- a mixed fleet rebuild with an explicit codec ---------------------------
+
+def test_fleet_rebuild_mixed_kinds_with_rs_codec(tmp_path, codec):
+    """rebuild_ec_files_batch(codec=RSCodec) on RS, Clay(10,4) and
+    LRC(10,2,2) volumes with shard 3 lost in each: the RS codec serves the
+    RS volume, the others get codecs of their own on its device; every
+    rebuilt shard equals the JAX package's encode."""
+    from seaweedfs_tpu.ops.clay_matrix import code as ref_clay_code
+    small = ref_clay_code(10, 4).alpha * 128
+    kinds = {7: ("rs", 0), 8: ("clay", 0), 9: ("lrc", 2)}
+    rng = np.random.default_rng(17)
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    ref_dir.mkdir()
+    bases, golden = [], {}
+    for vid, (kind, locals_) in kinds.items():
+        geo = ref_ec.EcGeometry(10, 4, large_block_size=4 * small,
+                                small_block_size=small, code_kind=kind,
+                                lrc_locals=locals_)
+        ref_base = str(ref_dir / str(vid))
+        size = geo.small_row_size() + 333
+        with open(ref_base + ".dat", "wb") as f:
+            f.write(rng.integers(0, 256, size, dtype=np.uint8).tobytes())
+        ref_ec.write_ec_files(ref_base, geo,
+                              RefCodec(10, 4, backend="numpy")
+                              if kind == "rs" else None)
+        ref_ec.save_volume_info(ref_base, 3, dat_size=size, data_shards=10,
+                                parity_shards=4,
+                                large_block_size=geo.large_block_size,
+                                small_block_size=small, code_kind=kind,
+                                lrc_locals=locals_)
+        golden[vid] = _read(ref_base + ec.to_ext(3))
+        bases.append(str(port_dir / str(vid)))
+    shutil.copytree(ref_dir, port_dir)
+    for base in bases:
+        os.remove(base + ec.to_ext(3))
+    out = ec.rebuild_ec_files_batch(bases, batch_bytes=small, codec=codec)
+    for vid, base in zip(kinds, bases):
+        assert out[base] == [3]
+        assert _read(base + ec.to_ext(3)) == golden[vid], kinds[vid]
 
 
 # -- needle bytes and checksums --------------------------------------------
