@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives the port's erasure-coding paths on the card, RS(10,4), Clay(10,4)
-and LRC(10,2,2), in seven phases; any mismatch or failure exits non-zero:
+and LRC(10,2,2), in eight phases; any mismatch or failure exits non-zero:
 
 1. Build every native source of the port (`seaweedfs_tpu_torch/csrc/`) into
    the git-ignored `seaweedfs_tpu_torch/build/`, compilers in parallel, and
@@ -58,9 +58,28 @@ and LRC(10,2,2), in seven phases; any mismatch or failure exits non-zero:
    Clay(10,4) volume of 256 MiB.  Every kernel's launch count is zeroed
    before it; gf2_matmul and both clay kernels must launch, and the codec
    metrics' dispatch counts must equal the dispatches the phase made.
-7. The kernels line (JSON; each kernel's median time at its fleet shape
-   over 21 runs, with min and quartiles), the card line, then the result
-   line.
+7. The device mesh (`seaweedfs_tpu_torch.parallel`): the pickers
+   (`multi_device_host()` is `device_count() > 1`; with no device given,
+   `codec_for(geo)` is an RSCodec on cuda whatever the GPU count).  On virtual meshes of the card
+   repeated 4 times (s=2, b=2) and 8 times (s=4, b=2), and on every GPU
+   when there is more than one: MeshCodec's encode of [64, 10, 8 MiB] and
+   reconstruct of the 4 lost [1, 4, 8, 12] at [64, 8 MiB], the LRC(10,2,2)
+   rows through gf_mesh_encode_begin and Clay(10,4) through
+   clay_mesh_encode_begin on 64 windows of 1 MiB, each byte-identical to
+   the single-device codec, each launching its kernel exactly once per
+   position (counted from zero), each device program timed with CUDA
+   events (median and quartiles of 7 runs) beside the single-device
+   codec's kernel; then, with every launch count zeroed, a 1 GiB RS needle
+   volume through `codec_for(geo, device=mesh)` (encode and a rebuild of
+   4 deleted shards, byte-identical to RSCodec's) and `serving.bind(mesh)`
+   on one LRC(10,2,2) and one Clay(10,4) volume of 256 MiB (encode equal
+   to `serving.bind(device)`'s, single-loss rebuild, decode).  A virtual
+   mesh runs the whole mesh program (per-position launches, zero-shard
+   padding, column blocks, the XOR reduce) on one card; its times are not
+   multi-GPU numbers.
+8. The kernels line (JSON; each kernel's median time at its fleet shape
+   over 21 runs, with min and quartiles, and its launches on each path),
+   the card line, then the result line.
 
 Every number is printed beside the card's name and power limit.  Needs a
 CUDA device; without one it exits non-zero and prints no result.
@@ -1215,6 +1234,371 @@ def phase_serving(card, work_dir, device, lrc_bytes=1 << 30,
     return res
 
 
+# -- phase 7: the device mesh -------------------------------------------------
+
+MESH_RUNS = 7     # timed runs of each mesh program and its single-device twin
+
+
+def time_on_mesh(torch, mesh, fn, reps: int = MESH_RUNS) -> dict:
+    """time_cuda of `fn`, which issues on the mesh's streams: on a mesh of
+    one device the events go on its mesh stream; across devices the host
+    clock runs from a synchronised start to every device's end."""
+    streams = mesh.streams()
+    if len(streams) == 1:
+        with mesh.issue():
+            return time_cuda(torch, fn, reps=reps)
+
+    def sync():
+        for d in streams:
+            torch.cuda.synchronize(d)
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    p25, p50, p75 = np.percentile(times, [25, 50, 75])
+    return {"ms": float(p50), "min": min(times), "p25": float(p25),
+            "p75": float(p75), "runs": reps}
+
+
+def _split(torch, mesh, full, row_blocks: int = 1):
+    """Mesh array of `full`'s blocks as the codec lays them out: the last
+    axis over every position (row_blocks 1), or rows over "s" and the last
+    axis over "b" (row_blocks = the "s" size).  Contiguous copies on each
+    position's device: set-up, not the codec's host split.  They are made
+    on the current streams, which Mesh.issue() makes the mesh's wait for."""
+    arr = np.empty(mesh.devices.shape, dtype=object)
+    rows = full.shape[-2] // row_blocks
+    n_col = mesh.size if row_blocks == 1 else mesh.shape["b"]
+    cols = full.shape[-1] // n_col
+    for idx, pos in enumerate(mesh.positions()):
+        r = 0 if row_blocks == 1 else pos[0]
+        c = idx if row_blocks == 1 else pos[1]
+        arr[pos] = full[..., r * rows:(r + 1) * rows,
+                        c * cols:(c + 1) * cols].contiguous().to(
+                            mesh.devices[pos])
+    return arr
+
+
+def phase_mesh_programs(torch, mesh, card, label, volumes=64, width=8 * MIB,
+                        clay_windows=64, reps=MESH_RUNS):
+    """One mesh's programs at full width against the single-device codecs
+    on its first position, byte for byte, each launching its kernel exactly
+    once per position (counted from zero): MeshCodec's encode of [volumes,
+    10, width] and its reconstruct of LOST from PRESENT at [volumes,
+    width]; the LRC(10,2,2) rows through gf_mesh_encode_begin against
+    gf_apply (host API, one batch of `width`) and on resident blocks; Clay
+    (10,4) through clay_mesh_encode_begin on `clay_windows` windows of 1
+    MiB against ClayWindowCodec (host API) and on resident blocks.  With
+    reps, each device program and its single-device twin are timed."""
+    from seaweedfs_tpu_torch.ops import clay_cuda, lrc, rs_cuda, rs_matrix
+    from seaweedfs_tpu_torch.ops import clay_structured as cs
+    from seaweedfs_tpu_torch.ops.codec import RSCodec, gf_apply
+    from seaweedfs_tpu_torch.parallel import mesh_codec as mc
+    from seaweedfs_tpu_torch.parallel import sharded_codec as sc
+    from seaweedfs_tpu_torch.storage.ec import ClayWindowCodec, EcGeometry
+    n = mesh.size
+    dev0 = mesh.devices.flat[0]
+    cuda = sc.mesh_is_cuda(mesh)
+    codec = mc.MeshCodec(10, 4, mesh=mesh)
+    single = RSCodec(10, 4, device=dev0)
+    g = torch.Generator(device=dev0).manual_seed(21)
+    res = {"mesh": label, "positions": n, "shape": dict(mesh.shape)}
+    tag = f"[mesh {label}]"
+
+    def rand(shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev0,
+                             generator=g)
+
+    def counted(counter, fn):
+        counter.reset()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        # CPU positions run the plain versions: no launch
+        check(counter.value == (n if cuda else 0), f"{tag} "
+              f"{counter.value} launches for {n} positions")
+        return out
+
+    def timed(op, mesh_fn, single_fn):
+        if reps:
+            res[op] = {"mesh": time_on_mesh(torch, mesh, mesh_fn, reps),
+                       "single": time_cuda(torch, single_fn, reps=reps)}
+
+    def hold(what, parts, want, row_blocks=1):
+        """Each position's block against its slice of `want`, once the
+        mesh's streams are done; with row_blocks, the product was reduced
+        over "s" and only the positions of s index 0 hold it."""
+        if cuda:
+            torch.cuda.synchronize()
+        n_col = mesh.size if row_blocks == 1 else mesh.shape["b"]
+        cols = want.shape[-1] // n_col
+        for idx, pos in enumerate(mesh.positions()):
+            if row_blocks > 1 and pos[0]:
+                check(parts[pos] is None, f"{tag} {what}: position {pos} "
+                      f"holds a block off the reduce's target")
+                continue
+            c = idx if row_blocks == 1 else pos[1]
+            check(torch.equal(parts[pos].to(dev0),
+                              want[..., c * cols:(c + 1) * cols]),
+                  f"{tag} {what}: position {pos} differs from the "
+                  f"single-device codec")
+
+    # RS encode: each volume's byte axis over every position
+    full = rand((volumes, 10, width))
+    blocks = _split(torch, mesh, full)
+    parts = counted(rs_cuda.launches, lambda: codec.encode_device(blocks))
+    want = rs_cuda.gf_matmul_bits_cuda(single.parity_planes, full)
+    hold("encode", parts, want)
+    timed("encode", lambda: codec.encode_device(blocks),
+          lambda: rs_cuda.gf_matmul_bits_cuda(single.parity_planes, full))
+    del full, blocks, parts, want
+
+    # RS reconstruct: volumes folded onto the byte axis, k padded to k_pad
+    # zero shards over "s"
+    s_n = mesh.shape["s"]
+    chosen = rand((codec.k_pad, volumes * width))
+    chosen[10:] = 0
+    blocks = _split(torch, mesh, chosen, s_n)
+    present, lost = tuple(PRESENT), tuple(LOST)
+    parts = counted(rs_cuda.launches,
+                    lambda: codec.reconstruct_device(present, lost, blocks))
+    planes = single.decode_planes(present, lost)
+    want = rs_cuda.gf_matmul_bits_cuda(planes, chosen[:10])
+    hold("reconstruct", parts, want, s_n)
+    timed("reconstruct",
+          lambda: codec.reconstruct_device(present, lost, blocks),
+          lambda: rs_cuda.gf_matmul_bits_cuda(planes, chosen[:10]))
+    del chosen, blocks, parts, want
+
+    # LRC(10,2,2) parity rows on the GF(2^8) kernel at every position
+    rows = np.ascontiguousarray(
+        lrc.generator_matrix(lrc.LrcGeometry(10, 2, 2))[10:])
+    x = rand((10, width)).cpu().numpy()
+    got = counted(rs_cuda.launches,
+                  lambda: mc.gf_mesh_encode_begin(rows, x, mesh)())
+    check(np.array_equal(got, gf_apply(rows, x, device=dev0)),
+          f"{tag} LRC rows differ from gf_apply")
+    full = rand((10, volumes * width))
+    blocks = _split(torch, mesh, full)
+    pm = rs_cuda.to_plane_major(rs_matrix.bit_matrix(rows), 4, 10)
+    planes = sc.mesh_planes(mesh, None, [pm])
+    lrc_planes = torch.from_numpy(pm).to(dev0)
+    hold("LRC", sc.local_products(mesh, planes, blocks),
+         rs_cuda.gf_matmul_bits_cuda(lrc_planes, full))
+    timed("lrc", lambda: sc.local_products(mesh, planes, blocks),
+          lambda: rs_cuda.gf_matmul_bits_cuda(lrc_planes, full))
+    del x, got, full, blocks
+
+    # Clay(10,4): whole 1 MiB windows over every position
+    geo = EcGeometry(CLAY_K, CLAY_M, code_kind="clay")
+    small = geo.small_block_size
+    full = rand((10, clay_windows * small))
+    x = full.cpu().numpy()
+    got = counted(clay_cuda.encode_launches,
+                  lambda: mc.clay_mesh_encode_begin(10, 4, x, small,
+                                                    mesh)())
+    check(np.array_equal(got, ClayWindowCodec(geo, device=dev0).encode(x)),
+          f"{tag} clay mesh encode differs from ClayWindowCodec")
+    blocks = _split(torch, mesh, full)
+    hold("clay", mc.clay_mesh_device(10, 4, blocks, small, mesh),
+         cs.encode_device(10, 4, full, small=small))
+    timed("clay", lambda: mc.clay_mesh_device(10, 4, blocks, small, mesh),
+          lambda: cs.encode_device(10, 4, full, small=small))
+    del x, got, full, blocks
+    if cuda:
+        torch.cuda.empty_cache()
+    for op, shape in (("encode", [volumes, 10, width]),
+                      ("reconstruct", [volumes, width]),
+                      ("lrc", [10, volumes * width]),
+                      ("clay", [10, clay_windows, 256, CLAY_W_A])):
+        if op in res:
+            t = res[op]
+            print(f"{tag} {op} {shape} as a virtual mesh on one card: mesh "
+                  f"program median {t['mesh']['ms']:.3f} ms (p25 "
+                  f"{t['mesh']['p25']:.3f}, p75 {t['mesh']['p75']:.3f}), "
+                  f"single-device codec {t['single']['ms']:.3f} ms (p25 "
+                  f"{t['single']['p25']:.3f}, p75 {t['single']['p75']:.3f})"
+                  f", {reps} runs each; byte-identical, {n} launches  "
+                  f"[{card}]")
+    return res
+
+
+def phase_mesh_disk(card, work_dir, mesh, device, counters,
+                    volume_bytes=1 << 30, serve_bytes=256 * MIB, seed=13):
+    """The mesh through the entry points a user calls: a needle volume
+    through `codec_for(geo, device=mesh)` (MeshCodec): encode_volume_to_ec
+    and a rebuild of 4 deleted shards, every shard byte-identical to
+    RSCodec's write_ec_files of the same .dat; then `serving.bind(mesh)`
+    for one LRC(10,2,2) and one Clay(10,4) volume: encode (shards equal to
+    `serving.bind(device)`'s), the single-loss rebuild of .ec03, and a
+    decode with .ec01 gone back to a byte-identical .dat.  The launches of
+    the single-device encodes it compares with are taken out of
+    `counters` ({name: LaunchCounter}) into res["comparison_launches"]."""
+    from seaweedfs_tpu_torch import serving
+    from seaweedfs_tpu_torch.ops.codec import RSCodec
+    from seaweedfs_tpu_torch.parallel.mesh_codec import MeshCodec
+    from seaweedfs_tpu_torch.storage import ec
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.ec.encoder import codec_for
+    res = {"comparison_launches": dict.fromkeys(counters, 0)}
+
+    def compared(fn, *args, **kwargs):
+        """A single-device run to compare with; its launches are counted
+        apart."""
+        before = {name: c.value for name, c in counters.items()}
+        fn(*args, **kwargs)
+        for name, c in counters.items():
+            res["comparison_launches"][name] += c.value - before[name]
+
+    def twin(base, name):
+        """A second volume on the same .dat and .idx (symlinks)."""
+        other = os.path.join(work_dir, name)
+        for ext in (".dat", ".idx"):
+            os.symlink(base + ext, other + ext)
+        return other
+
+    def same_shards(a, b, n, what):
+        for s in range(n):
+            check(_files_equal(a + ec.to_ext(s), b + ec.to_ext(s)),
+                  f"{what}: shard {s} differs")
+
+    geo = ec.DEFAULT_GEOMETRY
+    base = os.path.join(work_dir, "m1")
+    build_volume(base, volume_bytes, seed)
+    codec = codec_for(geo, device=mesh)
+    check(isinstance(codec, MeshCodec), f"codec_for(mesh) gave {codec}")
+    t0 = time.perf_counter()
+    ec.encode_volume_to_ec(base, version=t.VERSION3, geo=geo, codec=codec)
+    res["rs_encode_s"] = time.perf_counter() - t0
+    single = twin(base, "m1s")
+    t0 = time.perf_counter()
+    compared(ec.write_ec_files, single, geo, RSCodec(device=device))
+    res["rs_single_encode_s"] = time.perf_counter() - t0
+    same_shards(base, single, geo.total_shards, "mesh RS encode vs RSCodec")
+    lost = [0, 7, 10, 13]
+    for s in lost:
+        os.remove(base + ec.to_ext(s))
+    t0 = time.perf_counter()
+    rebuilt = ec.rebuild_ec_files(base, codec=codec_for(geo, device=mesh))
+    res["rs_rebuild_s"] = time.perf_counter() - t0
+    check(rebuilt == lost, f"mesh RS rebuilt {rebuilt}, expected {lost}")
+    same_shards(base, single, geo.total_shards, "mesh RS rebuild")
+    res["rs_dat_bytes"] = os.path.getsize(base + ".dat")
+    for f in os.listdir(work_dir):
+        if f.startswith("m1"):
+            os.remove(os.path.join(work_dir, f))
+    print(f"[mesh disk] RS volume of {res['rs_dat_bytes']} B through "
+          f"codec_for(geo, device=mesh): encode_volume_to_ec "
+          f"{res['rs_encode_s']:.2f} s (RSCodec write_ec_files "
+          f"{res['rs_single_encode_s']:.2f} s), rebuild of {lost} "
+          f"{res['rs_rebuild_s']:.2f} s; every shard byte-identical to "
+          f"RSCodec's  [{card}]")
+
+    bound, bound_single = serving.bind(mesh), serving.bind(device)
+    for kind, vid, vseed in (("lrc", 41, seed + 1), ("clay", 42, seed + 2)):
+        geo = bound.EcGeometry(code_kind=kind,
+                               lrc_locals=2 if kind == "lrc" else 0)
+        base = os.path.join(work_dir, str(vid))
+        build_volume(base, serve_bytes, vseed)
+        t0 = time.perf_counter()
+        bound.encode_volume_to_ec(base, version=t.VERSION3, geo=geo)
+        r = {"encode_s": time.perf_counter() - t0}
+        single = twin(base, f"{vid}s")
+        compared(bound_single.encode_volume_to_ec, single,
+                 version=t.VERSION3, geo=geo)
+        same_shards(base, single, geo.total_shards,
+                    f"bind(mesh) {kind} encode vs bind(device)")
+        os.replace(base + ec.to_ext(3), base + ".orig3")
+        t0 = time.perf_counter()
+        check(bound.rebuild_ec_files(base) == [3],
+              f"bind(mesh) {kind} rebuild")
+        r["rebuild_s"] = time.perf_counter() - t0
+        check(_files_equal(base + ec.to_ext(3), base + ".orig3"),
+              f"bind(mesh) {kind}: rebuilt .ec03 differs")
+        for ext in (".dat", ".idx"):
+            os.replace(base + ext, base + ext + ".orig")
+        os.remove(base + ec.to_ext(1))
+        t0 = time.perf_counter()
+        bound.decode_ec_to_volume(base)
+        r["decode_s"] = time.perf_counter() - t0
+        check(_files_equal(base + ".dat", base + ".dat.orig"),
+              f"bind(mesh) {kind}: decoded .dat differs")
+        check(_files_equal(base + ec.to_ext(1), single + ec.to_ext(1)),
+              f"bind(mesh) {kind}: .ec01 rebuilt by decode differs")
+        res[kind] = r
+        for f in os.listdir(work_dir):
+            if f.startswith(str(vid)):
+                os.remove(os.path.join(work_dir, f))
+        print(f"[mesh disk] serving.bind(mesh) {kind} on {serve_bytes} B: "
+              f"encode {r['encode_s']:.2f} s (shards equal to "
+              f"bind(device)'s), rebuild of .ec03 {r['rebuild_s']:.2f} s, "
+              f"decode with .ec01 gone {r['decode_s']:.2f} s; "
+              f"byte-identical  [{card}]")
+    return res
+
+
+def phase_mesh_picker(torch, card):
+    """The production picker on this machine: RSCodec on cuda whatever
+    the GPU count (the mesh is the caller's choice), and
+    multi_device_host() reporting whether there is more than one GPU."""
+    from seaweedfs_tpu_torch.ops.codec import RSCodec
+    from seaweedfs_tpu_torch.parallel import mesh_codec as mc
+    from seaweedfs_tpu_torch.storage import ec
+    from seaweedfs_tpu_torch.storage.ec.encoder import codec_for
+    count = torch.cuda.device_count()
+    check(mc.multi_device_host() == (count > 1),
+          f"multi_device_host() with {count} GPUs")
+    codec = codec_for(ec.DEFAULT_GEOMETRY)
+    check(type(codec) is RSCodec and codec.device.type == "cuda",
+          f"{count} GPU(s): picked {codec}")
+    print(f"[mesh] {count} GPU(s): multi_device_host() "
+          f"{mc.multi_device_host()}, codec_for(RS(10,4)) is "
+          f"{type(codec).__name__}  [{card}]")
+    return {"gpus": count, "picked": type(codec).__name__}
+
+
+def phase_mesh(torch, card, work_dir, device, programs=None, disk=None):
+    """Phase 7: the pickers; the mesh programs on virtual meshes of
+    `device` repeated 4 times (s=2, b=2) and 8 times (s=4, b=2), and on
+    every GPU when there is more than one; then the mesh's on-disk and
+    serving drive on the 4-position mesh (and on the real one), with every
+    kernel's launch count zeroed just before it and read just after.
+    `programs` and `disk` are keyword arguments (sizes) for
+    phase_mesh_programs and phase_mesh_disk."""
+    from seaweedfs_tpu_torch.ops import clay_cuda, rs_cuda
+    from seaweedfs_tpu_torch.parallel.mesh_codec import default_ec_mesh
+    res = {"picker": phase_mesh_picker(torch, card)}
+    meshes = {"virtual4": default_ec_mesh([device] * 4),
+              "virtual8": default_ec_mesh([device] * 8)}
+    if torch.cuda.device_count() > 1:
+        meshes["gpus"] = default_ec_mesh()
+    res["programs"] = [phase_mesh_programs(torch, mesh, card, label,
+                                           **(programs or {}))
+                       for label, mesh in meshes.items()]
+    counters = {"gf2_matmul": rs_cuda.launches,
+                "clay_fused_encode": clay_cuda.encode_launches,
+                "clay_fused_repair": clay_cuda.repair_launches}
+    for counter in counters.values():
+        counter.reset()
+    res["disk"] = {label: phase_mesh_disk(card, work_dir, meshes[label],
+                                          device, counters, **(disk or {}))
+                   for label in ("virtual4", "gpus") if label in meshes}
+    res["launches"] = {name: c.value - sum(
+        d["comparison_launches"][name] for d in res["disk"].values())
+        for name, c in counters.items()}
+    for name, n in res["launches"].items():
+        check(n > 0, f"the mesh path launched {name} no time")
+    print(f"[mesh] launches on the mesh path: {res['launches']} (the "
+          f"single-device encodes compared with: "
+          f"{[d['comparison_launches'] for d in res['disk'].values()]})  "
+          f"[{card}]")
+    return res
+
+
 def work_dir_for(volume_bytes: int) -> str:
     """/dev/shm when it has 4x the volume free, else the temp dir."""
     shm = "/dev/shm"
@@ -1301,6 +1685,9 @@ def main() -> int:
             "gf2_matmul": rs_cuda.launches.value,
             "clay_fused_encode": clay_cuda.encode_launches.value,
             "clay_fused_repair": clay_cuda.repair_launches.value}
+
+        # 7. the device mesh
+        mesh = phase_mesh(torch, card, work, device)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(main_launches > 0, "the RS main path launched the kernel no time")
@@ -1317,7 +1704,7 @@ def main() -> int:
     print(f"[serving] launches through the binding: {serving_launches}  "
           f"[{card}]")
 
-    # 7. kernels line, card line, result line
+    # 8. kernels line, card line, result line
     pallas = "seaweedfs_tpu/ops/rs_pallas.py"
     csrc = "seaweedfs_tpu_torch/csrc"
 
@@ -1333,7 +1720,8 @@ def main() -> int:
                 "ms_p75": spread["p75"], "runs": spread["runs"],
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                 "library_ms": None,
-                "serving_launches": serving_launches.get(name, 0)}
+                "serving_launches": serving_launches.get(name, 0),
+                "mesh_launches": mesh["launches"].get(name, 0)}
 
     cf = clay_fleet
     kernels = {"kernels": [
@@ -1360,6 +1748,7 @@ def main() -> int:
                "fleet_disk": fleet_disk, "profile": profiled,
                "clay_disk": clay_disk, "clay_fleet_disk": clay_fleet_disk,
                "serving": serving, "serving_launches": serving_launches,
+               "mesh": mesh,
                "held_against_plain": tally.by_kernel}
     print("details: " + json.dumps(details))
     print(json.dumps(kernels))

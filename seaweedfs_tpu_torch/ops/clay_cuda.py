@@ -146,16 +146,25 @@ def _check_common(rbits_pm: torch.Tensor, x: torch.Tensor, q: int,
         raise ValueError("bit matrix and data must be contiguous")
 
 
-def _launch_args(lib, x: torch.Tensor, q: int, t: int, repair: bool):
+def _check_launch(lib, x: torch.Tensor, q: int, t: int,
+                  repair: bool) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     smem = lib.clay_fused_smem_bytes(q, t, int(repair))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"clay q={q}, t={t} needs {smem} B of shared "
                          f"memory, more than {MAX_SMEM_BYTES}")
+
+
+def _launch(entry, x: torch.Tensor, *args) -> int:
+    """rc of the C entry `entry(*args, sm_count, stream)` for x's device,
+    on its current stream.  The entry's cudaFuncSetAttribute and <<<>>>
+    act on the thread's current device, so the call runs under a guard of
+    x's."""
     props = torch.cuda.get_device_properties(x.device)
-    stream = torch.cuda.current_stream(x.device)
-    return props.multi_processor_count, stream.cuda_stream
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device)
+        return entry(*args, props.multi_processor_count, stream.cuda_stream)
 
 
 def clay_fused_encode(rbits_pm: torch.Tensor, data4: torch.Tensor, *,
@@ -177,14 +186,14 @@ def clay_fused_encode(rbits_pm: torch.Tensor, data4: torch.Tensor, *,
         return clay_fused_encode_plain(rbits_pm, data4, q=q, t=t,
                                        gamma=gamma, det_inv=det_inv)
     lib = _kernel_lib()
-    sm_count, stream = _launch_args(lib, data4, q, t, repair=False)
+    _check_launch(lib, data4, q, t, repair=False)
     out = torch.empty((q, n_win, alpha, w_a), dtype=torch.uint8,
                       device=data4.device)
     if out.numel() == 0:
         return out
-    rc = lib.clay_fused_encode(rbits_pm.data_ptr(), q, k, t, gamma, det_inv,
-                               data4.data_ptr(), out.data_ptr(), n_win, w_a,
-                               sm_count, stream)
+    rc = _launch(lib.clay_fused_encode, data4, rbits_pm.data_ptr(), q, k, t,
+                 gamma, det_inv, data4.data_ptr(), out.data_ptr(), n_win,
+                 w_a)
     if rc != 0:
         raise RuntimeError(f"clay_fused_encode launch failed: "
                            f"{lib.clay_error_string(rc).decode()} ({rc})")
@@ -254,15 +263,15 @@ def clay_fused_repair(rbits_pm: torch.Tensor, x4: torch.Tensor, *, k: int,
                                        lost=lost, gamma=gamma,
                                        inv_gamma=inv_gamma)
     lib = _kernel_lib()
-    sm_count, stream = _launch_args(lib, x4, q, t, repair=True)
+    _check_launch(lib, x4, q, t, repair=True)
     _, n_win, _, w_a = x4.shape
     out = torch.empty((n_win, q ** t, w_a), dtype=torch.uint8,
                       device=x4.device)
     if out.numel() == 0:
         return out
-    rc = lib.clay_fused_repair(rbits_pm.data_ptr(), q, k, t, lost, gamma,
-                               inv_gamma, x4.data_ptr(), out.data_ptr(),
-                               n_win, w_a, sm_count, stream)
+    rc = _launch(lib.clay_fused_repair, x4, rbits_pm.data_ptr(), q, k, t,
+                 lost, gamma, inv_gamma, x4.data_ptr(), out.data_ptr(),
+                 n_win, w_a)
     if rc != 0:
         raise RuntimeError(f"clay_fused_repair launch failed: "
                            f"{lib.clay_error_string(rc).decode()} ({rc})")

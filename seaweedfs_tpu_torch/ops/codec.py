@@ -134,15 +134,19 @@ def device_call_begin(device: torch.device, stream, inputs: np.ndarray,
             inputs = inputs.copy()
         out = fn(torch.from_numpy(inputs)).numpy()
         return lambda: out
-    staged = torch.empty(inputs.shape, dtype=torch.uint8, pin_memory=True)
-    staged.numpy()[...] = inputs
-    with torch.cuda.stream(stream):
-        dev_out = fn(staged.to(device, non_blocking=True))
-        host = torch.empty(dev_out.shape, dtype=torch.uint8,
-                           pin_memory=True)
-        host.copy_(dev_out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
+    # the staging, the output buffer and the event belong to `device`,
+    # which need not be the thread's current device
+    with torch.cuda.device(device):
+        staged = torch.empty(inputs.shape, dtype=torch.uint8,
+                             pin_memory=True)
+        staged.numpy()[...] = inputs
+        with torch.cuda.stream(stream):
+            dev_out = fn(staged.to(device, non_blocking=True))
+            host = torch.empty(dev_out.shape, dtype=torch.uint8,
+                               pin_memory=True)
+            host.copy_(dev_out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
 
     def fetch():
         done.synchronize()

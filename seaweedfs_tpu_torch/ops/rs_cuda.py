@@ -176,10 +176,14 @@ def _launch(mbits_pm: torch.Tensor, data: torch.Tensor, mo: int,
     if v == 0 or n == 0:
         return out
     props = torch.cuda.get_device_properties(data.device)
-    stream = torch.cuda.current_stream(data.device)
-    rc = lib.gf2_matmul_bits(mbits_pm.data_ptr(), mo, ki, data.data_ptr(),
-                             out.data_ptr(), v, n,
-                             props.multi_processor_count, stream.cuda_stream)
+    # the C entry's cudaFuncSetAttribute and <<<>>> act on the thread's
+    # current device, which need not be data's
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device)
+        rc = lib.gf2_matmul_bits(mbits_pm.data_ptr(), mo, ki,
+                                 data.data_ptr(), out.data_ptr(), v, n,
+                                 props.multi_processor_count,
+                                 stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gf2_matmul launch failed: "
                            f"{lib.gf2_error_string(rc).decode()} ({rc})")

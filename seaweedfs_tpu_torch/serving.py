@@ -17,8 +17,12 @@ jax:
 
 The RPCs name no device and this package's entry points raise without
 CUDA, so the device is the caller's: "cuda" on a GPU host, "cpu" (the
-kernels' plain versions) only where a caller asks for it.  There is no
-backend pin: the bound `validate_ec_backend_pin` refuses `-ec.backend`.
+kernels' plain versions) only where a caller asks for it, or a
+`parallel.mesh.Mesh` (e.g. `parallel.mesh_codec.default_ec_mesh()` over
+every GPU): encodes and rebuilds then run on the mesh (MeshCodec for RS,
+the window codecs' mesh arms for Clay and LRC), and EC volumes read on its
+first position.  There is no backend pin: the bound
+`validate_ec_backend_pin` refuses `-ec.backend`.
 
 Importing this module installs nothing.  `bind(device)` returns the bound
 surface without touching `sys.modules`.
@@ -31,6 +35,7 @@ import sys
 import types
 
 from .ops import codec as ops_codec
+from .parallel.mesh import Mesh
 from .storage import ec
 from .storage.ec import (codes, decoder, ec_volume, encoder, layout,
                          shard_bits)
@@ -58,13 +63,17 @@ def _module(name: str, source: types.ModuleType,
 
 def bind(device) -> types.ModuleType:
     """The storage-EC surface the JAX package's serving code calls, every
-    codec built on `device`: `encode_volume_to_ec(base, version=, geo=)`,
-    `rebuild_ec_files(base, stats=)`, `decode_ec_to_volume(base)` and
-    `EcVolume(dir, collection, vid)` build their codec for the volume's
-    geometry on `device` when the caller passes none; everything else is
-    this package's `storage.ec` as it is.  The submodules are attributes:
-    `ec_volume` and `encoder` bound the same way, the others plain."""
-    dev = ops_codec.resolve_device(device)
+    codec built on `device` (a torch device or a Mesh):
+    `encode_volume_to_ec(base, version=, geo=)`, `rebuild_ec_files(base,
+    stats=)`, `decode_ec_to_volume(base)` and `EcVolume(dir, collection,
+    vid)` build their codec for the volume's geometry there when the
+    caller passes none (EcVolume on a mesh's first position: its degraded
+    reads stay on one device); everything else is this package's
+    `storage.ec` as it is.  The submodules are attributes: `ec_volume` and
+    `encoder` bound the same way, the others plain."""
+    dev = device if isinstance(device, Mesh) \
+        else ops_codec.resolve_device(device)
+    one = dev.devices.flat[0] if isinstance(dev, Mesh) else dev
 
     def encode_volume_to_ec(base_path, version, geo=layout.DEFAULT_GEOMETRY,
                             codec=None):
@@ -91,7 +100,7 @@ def bind(device) -> types.ModuleType:
             geo = geo or ec.geometry_from_vif(
                 ec_volume.volume_base(directory, collection, vid))
             super().__init__(directory, collection, vid, geo,
-                             codec or encoder.codec_for(geo, device=dev),
+                             codec or encoder.codec_for(geo, device=one),
                              **kwargs)
 
     bound_volume = _module(EC_MODULE + ".ec_volume", ec_volume,

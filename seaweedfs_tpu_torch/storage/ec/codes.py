@@ -20,6 +20,12 @@ matrix from the numpy oracles (ops/clay_matrix.py, ops/lrc.py) through
 codec.gf_apply on the device.  LRC is scalar per byte column like RS, so
 its advantage lives in the rebuild planner (lrc.plan_repair): a single loss
 reads one local group.
+
+On a device mesh (a `Mesh` passed as the device) both window codecs
+encode through the mesh arms of parallel/mesh_codec.py: the clay windows
+split over every position, each on the fused encode kernel, and the LRC
+parity rows on the GF(2^8) kernel at every position.  Rebuilds, repairs
+and degraded reads stay on one device, the mesh's first position.
 """
 
 from __future__ import annotations
@@ -33,6 +39,9 @@ import torch
 from ...ops import clay_matrix, clay_structured, lrc
 from ...ops.codec import (codec_metrics, device_call_begin, gf_apply,
                           metered_fetch, resolve_device)
+from ...parallel.mesh import Mesh
+from ...parallel.mesh_codec import (clay_mesh_encode_begin,
+                                    gf_mesh_encode_begin)
 from .layout import EcGeometry, to_ext
 
 CODE_KINDS = ("rs", "clay", "lrc")
@@ -45,14 +54,23 @@ def require_ported(geo: EcGeometry) -> None:
 
 
 def window_codec_for(geo: EcGeometry, *, device=None):
-    """The encode codec write_ec_files uses for non-RS kinds, on `device`
-    (CUDA unless the caller names another)."""
+    """The encode codec write_ec_files uses for non-RS kinds, on `device`:
+    a torch device or a `Mesh` (see `placement`)."""
     require_ported(geo)
     if geo.code_kind == "clay":
         return ClayWindowCodec(geo, device=device)
     if geo.code_kind == "lrc":
         return LrcWindowCodec(geo, device=device)
     raise ValueError(f"{geo.code_kind!r} has no window codec")
+
+
+def placement(device) -> tuple:
+    """(mesh, device) of a window codec.  A `Mesh` encodes on the mesh and
+    rebuilds on its first position; any other device is the one device
+    (None: CUDA)."""
+    if isinstance(device, Mesh):
+        return device, device.devices.flat[0]
+    return None, resolve_device(device)
 
 
 def lrc_geometry(geo: EcGeometry) -> lrc.LrcGeometry:
@@ -65,16 +83,17 @@ def lrc_geometry(geo: EcGeometry) -> lrc.LrcGeometry:
 
 
 class LrcWindowCodec:
-    """LRC encode on one device: the [l + r, k] parity rows of the
-    generator applied to [k, W] data through gf_apply (the bit-plane
-    product).  Runs on CUDA unless the caller names another device."""
+    """LRC encode: the [l + r, k] parity rows of the generator applied to
+    [k, W] data, through gf_apply (the bit-plane product) on one device, or
+    on a mesh through gf_mesh_encode_begin (the GF(2^8) kernel at every
+    position).  `device` as `placement` takes it."""
 
     def __init__(self, geo: EcGeometry, *, device=None):
         self.geo = geo
         self.lgeo = lrc_geometry(geo)
         self.k = geo.data_shards
         self.m = geo.parity_shards
-        self.device = resolve_device(device)
+        self.mesh, self.device = placement(device)
         self.parity_rows = np.ascontiguousarray(
             lrc.generator_matrix(self.lgeo)[self.k:])
 
@@ -89,9 +108,13 @@ class LrcWindowCodec:
         data = np.asarray(data, dtype=np.uint8)
         if data.ndim != 2 or data.shape[0] != self.k:
             raise ValueError(f"expected [{self.k}, W] data, got {data.shape}")
-        parity = gf_apply(self.parity_rows, data, device=self.device)
-        return metered_fetch(lambda: parity, "lrc", "encode", data.nbytes,
-                             t0, volumes=volumes)
+        if self.mesh is not None:
+            fetch = gf_mesh_encode_begin(self.parity_rows, data, self.mesh)
+        else:
+            parity = gf_apply(self.parity_rows, data, device=self.device)
+            fetch = lambda: parity  # noqa: E731
+        return metered_fetch(fetch, "lrc", "encode", data.nbytes, t0,
+                             volumes=volumes)
 
 
 class ClayWindowCodec:
@@ -100,7 +123,9 @@ class ClayWindowCodec:
     layer-major symbols and encoded by the fused structured kernel
     (uncouple -> [m, k0] layer MDS -> couple in one launch): bit-identical
     to the flat [m*alpha, k*alpha] generator at ~alpha times fewer GF
-    multiplies.  Runs on CUDA unless the caller names another device."""
+    multiplies.  On a mesh the windows split over every position
+    (clay_mesh_encode_begin); the repair runs on one device.  `device` as
+    `placement` takes it."""
 
     def __init__(self, geo: EcGeometry, *, device=None):
         self.geo = geo
@@ -111,7 +136,7 @@ class ClayWindowCodec:
             raise ValueError(
                 f"small_block_size {geo.small_block_size} must be a "
                 f"multiple of clay alpha {self.code.alpha}")
-        self.device = resolve_device(device)
+        self.mesh, self.device = placement(device)
         self._stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
 
@@ -138,11 +163,15 @@ class ClayWindowCodec:
                 or data.shape[1] % small:
             raise ValueError(f"expected [{self.k}, n * {small}] window "
                              f"bytes, got {data.shape}")
-        self._hold_planes(None)
-        fetch = device_call_begin(
-            self.device, self._stream, data,
-            lambda d: clay_structured.encode_device(self.k, self.m, d,
-                                                    small=small))
+        if self.mesh is not None:
+            fetch = clay_mesh_encode_begin(self.k, self.m, data, small,
+                                           self.mesh)
+        else:
+            self._hold_planes(None)
+            fetch = device_call_begin(
+                self.device, self._stream, data,
+                lambda d: clay_structured.encode_device(self.k, self.m, d,
+                                                        small=small))
         return metered_fetch(fetch, "clay", "encode", data.nbytes, t0,
                              volumes=volumes)
 

@@ -31,6 +31,7 @@ from typing import Union
 import numpy as np
 
 from ...ops.codec import RSCodec
+from ...parallel.mesh_codec import MeshCodec, codec_for_devices
 from ..idx import index_array_to_bytes, parse_index_bytes
 from ..types import TOMBSTONE_FILE_SIZE
 from .codes import (ClayWindowCodec, LrcWindowCodec, rebuild_clay,
@@ -87,20 +88,24 @@ def _pipelined(produce, consume) -> None:
         raise errs[0]
 
 
-Codec = Union[RSCodec, ClayWindowCodec, LrcWindowCodec]
-_CODEC_CLASS = {"rs": RSCodec, "clay": ClayWindowCodec, "lrc": LrcWindowCodec}
+Codec = Union[RSCodec, MeshCodec, ClayWindowCodec, LrcWindowCodec]
+_CODEC_CLASS = {"rs": (RSCodec, MeshCodec), "clay": ClayWindowCodec,
+                "lrc": LrcWindowCodec}
 
 
 def codec_for(geo: EcGeometry, codec: "Codec | None" = None, *,
               device=None) -> "Codec":
     """The caller's codec, checked against the geometry, or a new one for
-    it on `device` (CUDA unless the caller names another): RSCodec for RS,
-    the window codecs of codes.py for clay and LRC."""
+    it on `device`, a `Mesh` or a torch device (CUDA unless the caller
+    names another): for RS codec_for_devices (MeshCodec on a mesh, RSCodec
+    on a device), for clay and LRC the window codecs of codes.py, which
+    take a device the same way."""
     require_ported(geo)
     cls = _CODEC_CLASS[geo.code_kind]
     if codec is None:
-        if cls is RSCodec:
-            return RSCodec(geo.data_shards, geo.parity_shards, device=device)
+        if geo.code_kind == "rs":
+            return codec_for_devices(geo.data_shards, geo.parity_shards,
+                                     device=device)
         return window_codec_for(geo, device=device)
     if not isinstance(codec, cls):
         raise ValueError(f"a {type(codec).__name__} cannot code a "
@@ -384,7 +389,7 @@ def rebuild_ec_files_batch(base_paths: list[str],
     whole group.  Odd-one-out volumes take the single path, and clay and
     LRC volumes rebuild one by one (their reduced-IO repairs in codes.py).
     The caller's `codec` serves the RS volumes; the other kinds get codecs
-    of their own on its device (the default device without one).
+    of their own on its mesh or device (the default without one).
     Returns {base_path: rebuilt shard ids}."""
     from . import geometry_from_vif
     groups: dict[tuple, list[str]] = {}
@@ -403,7 +408,8 @@ def rebuild_ec_files_batch(base_paths: list[str],
         groups.setdefault((geo, have, size), []).append(base)
 
     out: dict[str, list[int]] = {b: [] for b in base_paths}
-    device = codec.device if codec is not None else None
+    device = None if codec is None \
+        else getattr(codec, "mesh", None) or codec.device
     for (geo, have, shard_size), bases in groups.items():
         if len(bases) == 1 or geo.code_kind != "rs":
             kind_codec = codec if geo.code_kind == "rs" \
