@@ -16,11 +16,14 @@ on the device.  With no device given on a host without CUDA the constructor
 raises: the codec never moves to the CPU by itself.
 
 `codec_metrics()` is the process-wide registry of codec calls that a
-volume server's GET /metrics appends to its page.
+volume server's GET /metrics appends to its page; `stage`, `job` and `span`
+time the host stages of the EC paths into it and, while torch.profiler
+records, onto the profiler's clock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 import time
@@ -28,6 +31,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _torch_profiler
 
 from ..stats import Registry
 from . import rs_cuda, rs_matrix, rs_torch
@@ -46,6 +51,25 @@ from . import rs_cuda, rs_matrix, rs_torch
 # codec calls span ~ms on the device to seconds on the CPU; the default
 # request buckets would put everything in two of them
 _CODEC_BUCKETS = [0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0]
+
+
+# the host stages (see `stage`), in the registry's order: (attribute of
+# _CodecMetrics, the span it opens while the profiler records, help); the
+# family is seaweedfs_<attribute>_seconds
+_STAGES = (
+    ("ec_read", "ec.read",
+     "EC shard or .dat bytes read into host memory in the codec's layout"),
+    ("ec_write", "ec.write", "EC shard-file writes of one batch or window"),
+    ("ec_queue_wait", "ec.queue_wait",
+     "EC pipeline producer blocked on the shard-file writer"),
+    ("codec_submit", "codec.submit",
+     "host part of an EC codec dispatch, from its call to its return"),
+    ("codec_wait", "codec.wait",
+     "EC codec dispatch blocked on the device for its result"),
+    ("needle_parse", "needle.parse",
+     "needle header, body and CRC parse of an EC read"),
+)
+STAGE_SPANS = {attr: span_name for attr, span_name, _ in _STAGES}
 
 
 class _CodecMetrics:
@@ -69,6 +93,15 @@ class _CodecMetrics:
             "seaweedfs_codec_dispatch_volumes_total",
             "volumes carried by EC codec dispatches",
             ["backend", "op"])
+        # the host stages of the EC paths and of the dispatch (`stage`),
+        # one observation per occurrence, labelled as the families above
+        # with the volume codec's backend; op names the path (the ec_*
+        # families: encode / rebuild / read) or the dispatch (codec_*:
+        # encode / reconstruct)
+        for attr, _, help_text in _STAGES:
+            setattr(self, attr, self.registry.histogram(
+                f"seaweedfs_{attr}_seconds", help_text, ["backend", "op"],
+                buckets=_CODEC_BUCKETS))
 
     def observe(self, backend: str, op: str, nbytes: int,
                 seconds: float, volumes: int = 1) -> None:
@@ -102,6 +135,118 @@ def metered_fetch(fetch, backend: str, op: str, nbytes: int, t0: float,
                                 time.perf_counter() - t0, volumes=volumes)
         return out
     return timed
+
+
+# -- host stages and spans ----------------------------------------------------
+#
+# A stage is one host step of an EC path or of a codec dispatch.  It is
+# always one observation in a family of codec_metrics(), and while
+# torch.profiler records, a span on the profiler's clock, which the CUDA
+# kernels and copies share.  An entry call (`job`) is a span too, carrying
+# what the stages inside it belong to as its args: a volume's base name or
+# `vid:needle id`.  A worker thread of the job opens the job's span again
+# on its own thread, so each stage span sits inside one carrying its job.
+
+
+class _ThreadState(threading.local):
+    def __init__(self):
+        self.job = None       # the entry call: (span name, identifier)
+        self.stages = []      # the open stages, innermost last
+
+
+_state = _ThreadState()
+
+
+def profiling() -> bool:
+    """Whether a torch.profiler session records in this process.  The
+    profiler's process-wide flag: torch.autograd._profiler_enabled()
+    answers only on the thread that started the session, not on the EC
+    writer threads, whose spans a profiler of all threads records."""
+    return _torch_profiler._is_profiler_enabled
+
+
+class _Stage:
+    __slots__ = ("hist", "labels", "name", "t0", "inner", "rf")
+
+    def __init__(self, hist, labels: tuple, name: str):
+        self.hist, self.labels, self.name = hist, labels, name
+
+    def __enter__(self):
+        self.rf = None
+        if profiling():
+            # torch's C++ record function, with no args: a few us a span
+            # under the profiler, against ~11 for record_function's op
+            self.rf = _RecordFunctionFast(self.name)
+            self.rf.__enter__()
+        _state.stages.append(self)
+        self.inner = 0.0
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        elapsed = time.perf_counter() - self.t0
+        stages = _state.stages
+        stages.pop()
+        if stages:
+            stages[-1].inner += elapsed
+        self.hist.observe(*self.labels, value=elapsed - self.inner)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def stage(family: str, backend: str, op: str) -> _Stage:
+    """Context manager timing one host stage: one observation of
+    `family` (a key of STAGE_SPANS, the family's attribute of
+    codec_metrics()) under (backend, op), the block's wall time less that
+    of the stages nested in it on this thread; and, while the profiler
+    records, the span STAGE_SPANS[family]."""
+    return _Stage(getattr(_codec_metrics or codec_metrics(), family),
+                  (backend, op), STAGE_SPANS[family])
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """A span with no family, while the profiler records; else nothing."""
+    if not profiling():
+        yield
+        return
+    with _RecordFunctionFast(name):
+        yield
+
+
+@contextlib.contextmanager
+def job(name: str, ident: str):
+    """An entry call: while the profiler records, the block is the span
+    `name` carrying `ident` as its args.  Inside another job on the same
+    thread the outer one stands for both; `current_job()` hands it to a
+    worker thread, which opens it again there."""
+    if _state.job is not None:
+        yield
+        return
+    _state.job = (name, ident)
+    try:
+        if profiling():
+            with torch.profiler.record_function(name, ident):
+                yield
+        else:
+            yield
+    finally:
+        _state.job = None
+
+
+def current_job() -> "tuple[str, str] | None":
+    """The job this thread is in: (span name, identifier), or None."""
+    return _state.job
+
+
+def waited(fetch, backend: str, op: str):
+    """fetch() with its wait on the device observed as a codec_wait
+    stage."""
+    def wait():
+        with stage("codec_wait", backend, op):
+            return fetch()
+    return wait
 
 
 def resolve_device(device=None) -> torch.device:
@@ -161,7 +306,8 @@ GF_APPLY_PLANE_BYTES = 1 << 30
 GF_APPLY_MAX_KI = 1 << 21
 
 
-def gf_apply(M: np.ndarray, x: np.ndarray, *, device=None) -> np.ndarray:
+def gf_apply(M: np.ndarray, x: np.ndarray, *, device=None,
+             metered: "tuple[str, str] | None" = None) -> np.ndarray:
     """out[MO, B] = M ∘GF∘ x[KI, B] for an arbitrary GF(2^8) matrix (numpy
     in and out) — the executor of the clay flat-matrix paths (multi-loss
     rebuild, degraded reads).
@@ -172,7 +318,9 @@ def gf_apply(M: np.ndarray, x: np.ndarray, *, device=None) -> np.ndarray:
     [8MO, 8KI] bit matrix (up to [8192, 20480] for clay) is far beyond a
     kernel's shared memory.  Columns go in chunks of at most
     GF_APPLY_PLANE_BYTES of planes.  Runs on CUDA unless the caller names
-    another device; the bit matrix of the last few M stays on the device."""
+    another device; the bit matrix of the last few M stays on the device.
+    `metered` (backend, op): each chunk's codec_submit and codec_wait
+    stages under those labels; None, no stage."""
     dev = resolve_device(device)
     M = np.ascontiguousarray(M, dtype=np.uint8)
     x = np.asarray(x, dtype=np.uint8)
@@ -188,9 +336,16 @@ def gf_apply(M: np.ndarray, x: np.ndarray, *, device=None) -> np.ndarray:
     out = np.empty((mo, b), dtype=np.uint8)
     chunk = max(1, GF_APPLY_PLANE_BYTES // (32 * ki))
     for c0 in range(0, b, chunk):
-        part = torch.from_numpy(np.ascontiguousarray(x[:, c0:c0 + chunk]))
-        out[:, c0:c0 + chunk] = rs_torch.gf_matmul_bits(
-            bits, part.to(dev)).cpu().numpy()
+        # each chunk is one dispatch: its upload and product issued, then
+        # its result waited for (stages only when metered)
+        with stage("codec_submit", *metered) if metered \
+                else contextlib.nullcontext():
+            part = torch.from_numpy(np.ascontiguousarray(
+                x[:, c0:c0 + chunk]))
+            prod = rs_torch.gf_matmul_bits(bits, part.to(dev))
+        with stage("codec_wait", *metered) if metered \
+                else contextlib.nullcontext():
+            out[:, c0:c0 + chunk] = prod.cpu().numpy()
     return out
 
 
@@ -211,6 +366,7 @@ class RSCodec:
         self.device = resolve_device(device)
         # the executor in the metrics' backend label, rs_cuda / rs_torch
         self.backend = "cuda" if self.device.type == "cuda" else "torch"
+        self.label = f"rs_{self.backend}"
         self.k = data_shards
         self.m = parity_shards
         self.n = data_shards + parity_shards
@@ -244,8 +400,8 @@ class RSCodec:
             self.device, self._stream, inputs,
             lambda x: rs_cuda.gf_matmul_bits_cuda(planes, x))
         volumes = int(np.prod(inputs.shape[:-2])) if inputs.ndim > 2 else 1
-        return metered_fetch(fetch, f"rs_{self.backend}", op, inputs.nbytes,
-                             t0, volumes=volumes)
+        return waited(metered_fetch(fetch, self.label, op, inputs.nbytes, t0,
+                                    volumes=volumes), self.label, op)
 
     # -- public API ------------------------------------------------------
     def encode(self, data: np.ndarray) -> np.ndarray:
@@ -258,7 +414,8 @@ class RSCodec:
         if data.ndim not in (2, 3) or data.shape[-2] != self.k:
             raise ValueError(f"expected [{self.k}, B] or [V, {self.k}, B] "
                              f"data, got {data.shape}")
-        return self._matmul_begin(self.parity_planes, data, "encode")
+        with stage("codec_submit", self.label, "encode"):
+            return self._matmul_begin(self.parity_planes, data, "encode")
 
     def reconstruct(self, shards: list[np.ndarray | None], *,
                     data_only: bool = False) -> list[np.ndarray]:
@@ -283,10 +440,13 @@ class RSCodec:
         if not targets:
             res = list(shards)
             return lambda: res
-        planes = self.decode_planes(tuple(present), tuple(targets))
-        chosen = np.stack([np.asarray(shards[i], dtype=np.uint8)
-                           for i in present[:self.k]], axis=-2)
-        raw = self._matmul_begin(planes, chosen, "reconstruct")
+        # the stack reads the survivors (lazily mapped shard slices in a
+        # rebuild) into the staging layout: the dispatch's host part
+        with stage("codec_submit", self.label, "reconstruct"):
+            planes = self.decode_planes(tuple(present), tuple(targets))
+            chosen = np.stack([np.asarray(shards[i], dtype=np.uint8)
+                               for i in present[:self.k]], axis=-2)
+            raw = self._matmul_begin(planes, chosen, "reconstruct")
 
         def fetch():
             rec = raw()

@@ -86,6 +86,7 @@ class MeshCodec:
         self.n = data_shards + parity_shards
         self.kind = kind
         self.backend = "mesh"
+        self.label = "rs_mesh"    # the backend label of its codec metrics
         self.gen = rs_matrix.generator_matrix(self.k, self.m, kind)
         self.parity_pm = rs_cuda.to_plane_major(
             rs_matrix.parity_bit_matrix(self.k, self.m, kind), self.m, self.k)
@@ -127,7 +128,7 @@ class MeshCodec:
             self.mesh, self.parity_pm, self.m, data,
             (None,) * (data.ndim - 1) + (self.mesh.axis_names,))
         volumes = data.shape[0] if data.ndim == 3 else 1
-        return metered_fetch(fetch, "rs_mesh", "encode", data.nbytes, t0,
+        return metered_fetch(fetch, self.label, "encode", data.nbytes, t0,
                              volumes=volumes)
 
     def reconstruct(self, shards: list, *,
@@ -179,7 +180,7 @@ class MeshCodec:
                     out[t] = rec[row].reshape(*lead, -1)
             return out
         volumes = lead[0] if lead else 1
-        return metered_fetch(fetch, "rs_mesh", "reconstruct", chosen.nbytes,
+        return metered_fetch(fetch, self.label, "reconstruct", chosen.nbytes,
                              t0, volumes=volumes)
 
     def verify(self, shards: list) -> bool:

@@ -75,19 +75,24 @@ def bind(device) -> types.ModuleType:
         else ops_codec.resolve_device(device)
     one = dev.devices.flat[0] if isinstance(dev, Mesh) else dev
 
+    # the entry's job opens here, where its codec is built, so that it
+    # holds the build (the storage calls' own jobs open only for
+    # callers outside a job)
     def encode_volume_to_ec(base_path, version, geo=layout.DEFAULT_GEOMETRY,
                             codec=None):
-        ec.encode_volume_to_ec(
-            base_path, version, geo,
-            codec or encoder.codec_for(geo, device=dev))
+        with ops_codec.job("ec.encode_volume", os.path.basename(base_path)):
+            ec.encode_volume_to_ec(
+                base_path, version, geo,
+                codec or encoder.codec_for(geo, device=dev))
 
     def rebuild_ec_files(base_path, geo=None, codec=None,
                          batch_bytes=encoder.DEFAULT_BATCH_BYTES,
                          stats=None):
-        geo = geo or ec.geometry_from_vif(base_path)
-        return ec.rebuild_ec_files(
-            base_path, geo, codec or encoder.codec_for(geo, device=dev),
-            batch_bytes, stats)
+        with ops_codec.job("ec.rebuild", os.path.basename(base_path)):
+            geo = geo or ec.geometry_from_vif(base_path)
+            return ec.rebuild_ec_files(
+                base_path, geo, codec or encoder.codec_for(geo, device=dev),
+                batch_bytes, stats)
 
     def decode_ec_to_volume(base_path, geo=None, codec=None):
         geo = geo or ec.geometry_from_vif(base_path)

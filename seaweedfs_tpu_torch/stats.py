@@ -9,6 +9,8 @@ page whichever package computes the codes.
 
 from __future__ import annotations
 
+import bisect
+import itertools
 import threading
 from collections import defaultdict
 
@@ -74,6 +76,8 @@ class Histogram:
         self.name = name
         self.help = help_text
         self.buckets = buckets or _BUCKETS
+        # labels -> observations per bucket, each counted once, in the
+        # first bucket that holds it (the page's counts are cumulative)
         self._counts: dict[tuple, list[int]] = {}
         self._sums: dict[tuple, float] = defaultdict(float)
         self._totals: dict[tuple, int] = defaultdict(int)
@@ -83,13 +87,11 @@ class Histogram:
         self._lock = threading.Lock()
 
     def observe(self, *labels, value: float, trace_id: str = "") -> None:
+        bucket_idx = bisect.bisect_left(self.buckets, value)
         with self._lock:
-            counts = self._counts.setdefault(labels, [0] * len(self.buckets))
-            bucket_idx = len(self.buckets)
-            for i, b in enumerate(self.buckets):
-                if value <= b:
-                    counts[i] += 1
-                    bucket_idx = min(bucket_idx, i)
+            counts = self._counts.setdefault(
+                labels, [0] * (len(self.buckets) + 1))
+            counts[bucket_idx] += 1
             self._sums[labels] += value
             self._totals[labels] += 1
             if trace_id:
@@ -101,7 +103,8 @@ class Histogram:
         out = [f"# HELP {self.name} {self.help}",
                f"# TYPE {self.name} histogram"]
         with self._lock:
-            items = [(labels, list(counts), self._sums[labels],
+            items = [(labels, list(itertools.accumulate(counts[:-1])),
+                      self._sums[labels],
                       self._totals[labels],
                       dict(self._exemplars.get(labels, {}))
                       if exemplars else {})

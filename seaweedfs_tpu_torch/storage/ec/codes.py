@@ -38,7 +38,7 @@ import torch
 
 from ...ops import clay_matrix, clay_structured, lrc
 from ...ops.codec import (codec_metrics, device_call_begin, gf_apply,
-                          metered_fetch, resolve_device)
+                          metered_fetch, resolve_device, stage, waited)
 from ...parallel.mesh import Mesh
 from ...parallel.mesh_codec import (clay_mesh_encode_begin,
                                     gf_mesh_encode_begin)
@@ -88,6 +88,8 @@ class LrcWindowCodec:
     on a mesh through gf_mesh_encode_begin (the GF(2^8) kernel at every
     position).  `device` as `placement` takes it."""
 
+    label = "lrc"     # the backend label of its codec metrics
+
     def __init__(self, geo: EcGeometry, *, device=None):
         self.geo = geo
         self.lgeo = lrc_geometry(geo)
@@ -111,9 +113,10 @@ class LrcWindowCodec:
         if self.mesh is not None:
             fetch = gf_mesh_encode_begin(self.parity_rows, data, self.mesh)
         else:
-            parity = gf_apply(self.parity_rows, data, device=self.device)
+            parity = gf_apply(self.parity_rows, data, device=self.device,
+                              metered=(self.label, "encode"))
             fetch = lambda: parity  # noqa: E731
-        return metered_fetch(fetch, "lrc", "encode", data.nbytes, t0,
+        return metered_fetch(fetch, self.label, "encode", data.nbytes, t0,
                              volumes=volumes)
 
 
@@ -126,6 +129,8 @@ class ClayWindowCodec:
     multiplies.  On a mesh the windows split over every position
     (clay_mesh_encode_begin); the repair runs on one device.  `device` as
     `placement` takes it."""
+
+    label = "clay"    # the backend label of its codec metrics
 
     def __init__(self, geo: EcGeometry, *, device=None):
         self.geo = geo
@@ -166,23 +171,28 @@ class ClayWindowCodec:
         if self.mesh is not None:
             fetch = clay_mesh_encode_begin(self.k, self.m, data, small,
                                            self.mesh)
-        else:
+            return metered_fetch(fetch, self.label, "encode", data.nbytes,
+                                 t0, volumes=volumes)
+        with stage("codec_submit", self.label, "encode"):
             self._hold_planes(None)
             fetch = device_call_begin(
                 self.device, self._stream, data,
                 lambda d: clay_structured.encode_device(self.k, self.m, d,
                                                         small=small))
-        return metered_fetch(fetch, "clay", "encode", data.nbytes, t0,
-                             volumes=volumes)
+        return waited(metered_fetch(fetch, self.label, "encode", data.nbytes,
+                                    t0, volumes=volumes),
+                      self.label, "encode")
 
     def repair(self, lost: int, x4: np.ndarray) -> np.ndarray:
         """The lost shard's windows [n_win, alpha, w_a] from the helpers'
         plane layers x4 [k+m-1, n_win, beta, w_a] (one fused launch)."""
-        self._hold_planes(lost)
-        return device_call_begin(
-            self.device, self._stream, x4,
-            lambda x: clay_structured.repair_device_fused(
-                self.k, self.m, lost, x))()
+        with stage("codec_submit", self.label, "reconstruct"):
+            self._hold_planes(lost)
+            fetch = device_call_begin(
+                self.device, self._stream, x4,
+                lambda x: clay_structured.repair_device_fused(
+                    self.k, self.m, lost, x))
+        return waited(fetch, self.label, "reconstruct")()
 
 
 # -- rebuild ---------------------------------------------------------------
@@ -206,12 +216,15 @@ def rebuild_lrc(base_path: str, geo: EcGeometry, missing: list[int],
     try:
         for off in range(0, shard_size, batch_bytes):
             width = min(batch_bytes, shard_size - off)
-            x = np.stack([np.asarray(inputs[i][off:off + width])
-                          for i in plan.read_shards])
+            with stage("ec_read", codec.label, "rebuild"):
+                x = np.stack([np.asarray(inputs[i][off:off + width])
+                              for i in plan.read_shards])
             bytes_read += x.size
-            rec = gf_apply(plan.matrix, x, device=codec.device)
-            for row, t in enumerate(plan.missing):
-                outputs[t].write(rec[row].tobytes())
+            rec = gf_apply(plan.matrix, x, device=codec.device,
+                           metered=(codec.label, "reconstruct"))
+            with stage("ec_write", codec.label, "rebuild"):
+                for row, t in enumerate(plan.missing):
+                    outputs[t].write(rec[row].tobytes())
     finally:
         for f in outputs.values():
             f.close()
@@ -256,13 +269,16 @@ def rebuild_clay(base_path: str, geo: EcGeometry, missing: list[int],
                 # helper-major [H, wn, beta, win_a]: the gather is the
                 # partial-range plane read; the kernel returns the natural
                 # [wn, alpha, win_a] layer-major layout, written verbatim
-                x4 = np.empty((len(helpers), wn, len(plane), win_a),
-                              dtype=np.uint8)
-                for hi, h in enumerate(helpers):
-                    span = inputs[h][w0 * small:(w0 + wn) * small]
-                    x4[hi] = span.reshape(wn, alpha, win_a)[:, plane_idx]
+                with stage("ec_read", codec.label, "rebuild"):
+                    x4 = np.empty((len(helpers), wn, len(plane), win_a),
+                                  dtype=np.uint8)
+                    for hi, h in enumerate(helpers):
+                        span = inputs[h][w0 * small:(w0 + wn) * small]
+                        x4[hi] = span.reshape(wn, alpha, win_a)[:, plane_idx]
                 bytes_read += x4.size
-                out.write(codec.repair(lost, x4).tobytes())
+                rec = codec.repair(lost, x4)
+                with stage("ec_write", codec.label, "rebuild"):
+                    out.write(rec.tobytes())
         codec_metrics().observe("clay", "reconstruct", bytes_read,
                                 time.perf_counter() - t0)
         if stats is not None:
@@ -283,19 +299,23 @@ def rebuild_clay(base_path: str, geo: EcGeometry, missing: list[int],
     try:
         for w0 in range(0, shard_size // small, wins_per_batch):
             wn = min(wins_per_batch, shard_size // small - w0)
-            x = np.empty((k * alpha, wn * win_a), dtype=np.uint8)
-            for ci, i in enumerate(chosen):
-                span = np.asarray(inputs[i][w0 * small:(w0 + wn) * small])
-                bytes_read += span.size
-                x[ci * alpha:(ci + 1) * alpha] = np.ascontiguousarray(
-                    span.reshape(wn, alpha, win_a).transpose(1, 0, 2)
-                ).reshape(alpha, -1)
-            rec = gf_apply(D, x, device=codec.device)
-            for row, t in enumerate(missing):
-                part = rec[row * alpha:(row + 1) * alpha]
-                outputs[t].write(np.ascontiguousarray(
-                    part.reshape(alpha, wn, win_a).transpose(1, 0, 2)
-                ).tobytes())
+            with stage("ec_read", codec.label, "rebuild"):
+                x = np.empty((k * alpha, wn * win_a), dtype=np.uint8)
+                for ci, i in enumerate(chosen):
+                    span = np.asarray(
+                        inputs[i][w0 * small:(w0 + wn) * small])
+                    bytes_read += span.size
+                    x[ci * alpha:(ci + 1) * alpha] = np.ascontiguousarray(
+                        span.reshape(wn, alpha, win_a).transpose(1, 0, 2)
+                    ).reshape(alpha, -1)
+            rec = gf_apply(D, x, device=codec.device,
+                           metered=(codec.label, "reconstruct"))
+            with stage("ec_write", codec.label, "rebuild"):
+                for row, t in enumerate(missing):
+                    part = rec[row * alpha:(row + 1) * alpha]
+                    outputs[t].write(np.ascontiguousarray(
+                        part.reshape(alpha, wn, win_a).transpose(1, 0, 2)
+                    ).tobytes())
     finally:
         for f in outputs.values():
             f.close()

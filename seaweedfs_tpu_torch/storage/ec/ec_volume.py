@@ -25,7 +25,7 @@ from typing import Callable
 import numpy as np
 
 from ...ops import clay_matrix, lrc
-from ...ops.codec import gf_apply
+from ...ops.codec import gf_apply, job, stage
 from .. import types as t
 from ..idx import parse_index_bytes
 from ..needle import Needle
@@ -247,13 +247,14 @@ class EcVolume:
         n = self.geo.total_shards
         shards: list[np.ndarray | None] = [None] * n
         got = 0
-        for sid in range(n):
-            if sid == missing_shard or got >= self.geo.data_shards:
-                continue
-            raw = self._read_local_or_remote(sid, offset, size)
-            if raw is not None and len(raw) == size:
-                shards[sid] = np.frombuffer(raw, dtype=np.uint8)
-                got += 1
+        with stage("ec_read", self.codec.label, "read"):
+            for sid in range(n):
+                if sid == missing_shard or got >= self.geo.data_shards:
+                    continue
+                raw = self._read_local_or_remote(sid, offset, size)
+                if raw is not None and len(raw) == size:
+                    shards[sid] = np.frombuffer(raw, dtype=np.uint8)
+                    got += 1
         if got < self.geo.data_shards:
             raise EcShardUnavailableError(
                 f"vol {self.volume_id} shard {missing_shard}: only {got} "
@@ -266,32 +267,35 @@ class EcVolume:
         plan's shards: one local group for a single loss.  If a group
         member does not answer either, every shard is probed and the
         repair re-planned globally over those that answered."""
-        lgeo = self.codec.lgeo
-        plan = lrc.plan_repair(lgeo, [missing_shard])
-        rows = []
-        for sid in plan.read_shards:
-            raw = self._read_local_or_remote(sid, offset, size)
-            if raw is None or len(raw) != size:
-                rows = None
-                break
-            rows.append(np.frombuffer(raw, dtype=np.uint8))
-        if rows is None:
-            got: dict[int, np.ndarray] = {}
-            for sid in range(self.geo.total_shards):
-                if sid == missing_shard:
-                    continue
+        with stage("ec_read", self.codec.label, "read"):
+            lgeo = self.codec.lgeo
+            plan = lrc.plan_repair(lgeo, [missing_shard])
+            rows = []
+            for sid in plan.read_shards:
                 raw = self._read_local_or_remote(sid, offset, size)
-                if raw is not None and len(raw) == size:
-                    got[sid] = np.frombuffer(raw, dtype=np.uint8)
-            try:
-                plan = lrc.plan_repair(lgeo, [missing_shard],
-                                       available=sorted(got))
-            except ValueError as e:
-                raise EcShardUnavailableError(
-                    f"vol {self.volume_id} shard {missing_shard}: "
-                    f"{e}") from None
-            rows = [got[sid] for sid in plan.read_shards]
-        out = gf_apply(plan.matrix, np.stack(rows), device=self.codec.device)
+                if raw is None or len(raw) != size:
+                    rows = None
+                    break
+                rows.append(np.frombuffer(raw, dtype=np.uint8))
+            if rows is None:
+                got: dict[int, np.ndarray] = {}
+                for sid in range(self.geo.total_shards):
+                    if sid == missing_shard:
+                        continue
+                    raw = self._read_local_or_remote(sid, offset, size)
+                    if raw is not None and len(raw) == size:
+                        got[sid] = np.frombuffer(raw, dtype=np.uint8)
+                try:
+                    plan = lrc.plan_repair(lgeo, [missing_shard],
+                                           available=sorted(got))
+                except ValueError as e:
+                    raise EcShardUnavailableError(
+                        f"vol {self.volume_id} shard {missing_shard}: "
+                        f"{e}") from None
+                rows = [got[sid] for sid in plan.read_shards]
+            x = np.stack(rows)
+        out = gf_apply(plan.matrix, x, device=self.codec.device,
+                       metered=(self.codec.label, "reconstruct"))
         return out[0].tobytes()
 
     def _reconstruct_interval_clay(self, missing_shard: int, offset: int,
@@ -310,24 +314,27 @@ class EcVolume:
         a_off, wn = w0 * small, w1 - w0
         a_size = wn * small
         present, blocks = [], []
-        for sid in range(geo.total_shards):
-            if sid == missing_shard or len(present) >= geo.data_shards:
-                continue
-            raw = self._read_local_or_remote(sid, a_off, a_size)
-            if raw is not None and len(raw) == a_size:
-                present.append(sid)
-                arr = np.frombuffer(raw, dtype=np.uint8)
-                blocks.append(np.ascontiguousarray(
-                    arr.reshape(wn, alpha, win_a).transpose(1, 0, 2)
-                ).reshape(alpha, -1))
-        if len(present) < geo.data_shards:
-            raise EcShardUnavailableError(
-                f"vol {self.volume_id} shard {missing_shard}: only "
-                f"{len(present)} shards reachable, need {geo.data_shards}")
+        with stage("ec_read", self.codec.label, "read"):
+            for sid in range(geo.total_shards):
+                if sid == missing_shard or len(present) >= geo.data_shards:
+                    continue
+                raw = self._read_local_or_remote(sid, a_off, a_size)
+                if raw is not None and len(raw) == a_size:
+                    present.append(sid)
+                    arr = np.frombuffer(raw, dtype=np.uint8)
+                    blocks.append(np.ascontiguousarray(
+                        arr.reshape(wn, alpha, win_a).transpose(1, 0, 2)
+                    ).reshape(alpha, -1))
+            if len(present) < geo.data_shards:
+                raise EcShardUnavailableError(
+                    f"vol {self.volume_id} shard {missing_shard}: only "
+                    f"{len(present)} shards reachable, need "
+                    f"{geo.data_shards}")
+            x = np.concatenate(blocks, axis=0)
         D = clay_matrix.decode_flat(geo.data_shards, geo.parity_shards,
                                     tuple(present), (missing_shard,))
-        rec = gf_apply(D, np.concatenate(blocks, axis=0),
-                       device=self.codec.device)
+        rec = gf_apply(D, x, device=self.codec.device,
+                       metered=(self.codec.label, "reconstruct"))
         window = np.ascontiguousarray(
             rec.reshape(alpha, wn, win_a).transpose(1, 0, 2)).reshape(-1)
         lo = offset - a_off
@@ -335,8 +342,9 @@ class EcVolume:
 
     def read_interval(self, interval: Interval) -> bytes:
         shard_id, shard_offset = interval.to_shard_id_and_offset(self.geo)
-        data = self._read_local_or_remote(shard_id, shard_offset,
-                                          interval.size)
+        with stage("ec_read", self.codec.label, "read"):
+            data = self._read_local_or_remote(shard_id, shard_offset,
+                                              interval.size)
         if data is not None and len(data) == interval.size:
             return data
         return self._reconstruct_interval(shard_id, shard_offset,
@@ -344,14 +352,17 @@ class EcVolume:
 
     def read_needle(self, needle_id: int, cookie: "int | None" = None
                     ) -> Needle:
-        """Full EC needle read (ReadEcShardNeedle store_ec.go:125-186)."""
-        _, size, intervals = self.locate_ec_shard_needle(needle_id)
-        raw = b"".join(self.read_interval(iv) for iv in intervals)
-        n = Needle()
-        n.read_bytes(raw, 0, size, self.version)
-        if cookie is not None and n.cookie != cookie:
-            raise EcNotFoundError(f"cookie mismatch for {needle_id:x}")
-        return n
+        """Full EC needle read (ReadEcShardNeedle store_ec.go:125-186).  The
+        job ec.read_needle, named `vid:needle id` (hex)."""
+        with job("ec.read_needle", f"{self.volume_id}:{needle_id:x}"):
+            _, size, intervals = self.locate_ec_shard_needle(needle_id)
+            raw = b"".join(self.read_interval(iv) for iv in intervals)
+            n = Needle()
+            with stage("needle_parse", self.codec.label, "read"):
+                n.read_bytes(raw, 0, size, self.version)
+            if cookie is not None and n.cookie != cookie:
+                raise EcNotFoundError(f"cookie mismatch for {needle_id:x}")
+            return n
 
     # -- maintenance -------------------------------------------------------
     def file_count(self) -> int:

@@ -22,6 +22,8 @@ inconsistent edge.  We use `>=` on both sides so every size round-trips.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import itertools
 import os
 import queue as _queue
@@ -30,7 +32,7 @@ from typing import Union
 
 import numpy as np
 
-from ...ops.codec import RSCodec
+from ...ops.codec import RSCodec, current_job, job, span, stage
 from ...parallel.mesh_codec import MeshCodec, codec_for_devices
 from ..idx import index_array_to_bytes, parse_index_bytes
 from ..types import TOMBSTONE_FILE_SIZE
@@ -48,7 +50,7 @@ DEFAULT_BATCH_BYTES = 8 * 1024 * 1024
 PIPELINE_DEPTH = 2
 
 
-def _pipelined(produce, consume) -> None:
+def _pipelined(produce, consume, backend: str, op: str) -> None:
     """Run `produce` (a generator issuing async device work per item) against
     `consume(item)` on a writer thread, PIPELINE_DEPTH items in flight.
 
@@ -57,22 +59,26 @@ def _pipelined(produce, consume) -> None:
     and the writer blocks in fetch()/file-writes.  A bounded queue keeps at
     most PIPELINE_DEPTH batches of host buffers alive, and writes happen in
     submission order (single consumer, FIFO queue), which append-only shard
-    files require."""
+    files require.  Each put, and the end of the stream with the writer's
+    drain, is an ec_queue_wait stage under (backend, op); the writer thread
+    takes the caller's job."""
     q: _queue.Queue = _queue.Queue(maxsize=PIPELINE_DEPTH)
     errs: list[BaseException] = []
+    outer = current_job()
 
     def writer():
-        while True:
-            item = q.get()
-            if item is None:
-                return
-            if not errs:
-                try:
-                    consume(item)
-                except BaseException as e:  # surfaced to the caller below
-                    errs.append(e)
-            # after an error keep draining so the producer never deadlocks
-            # on a full queue
+        with job(*outer) if outer else contextlib.nullcontext():
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if not errs:
+                    try:
+                        consume(item)
+                    except BaseException as e:  # surfaced to the caller
+                        errs.append(e)
+                # after an error keep draining so the producer never
+                # deadlocks on a full queue
 
     t = threading.Thread(target=writer, name="ec-writer")
     t.start()
@@ -80,10 +86,12 @@ def _pipelined(produce, consume) -> None:
         for item in produce:
             if errs:
                 break
-            q.put(item)
+            with stage("ec_queue_wait", backend, op):
+                q.put(item)
     finally:
-        q.put(None)
-        t.join()
+        with stage("ec_queue_wait", backend, op):
+            q.put(None)
+            t.join()
     if errs:
         raise errs[0]
 
@@ -99,14 +107,15 @@ def codec_for(geo: EcGeometry, codec: "Codec | None" = None, *,
     it on `device`, a `Mesh` or a torch device (CUDA unless the caller
     names another): for RS codec_for_devices (MeshCodec on a mesh, RSCodec
     on a device), for clay and LRC the window codecs of codes.py, which
-    take a device the same way."""
+    take a device the same way.  Building one is the span codec.build."""
     require_ported(geo)
     cls = _CODEC_CLASS[geo.code_kind]
     if codec is None:
-        if geo.code_kind == "rs":
-            return codec_for_devices(geo.data_shards, geo.parity_shards,
-                                     device=device)
-        return window_codec_for(geo, device=device)
+        with span("codec.build"):
+            if geo.code_kind == "rs":
+                return codec_for_devices(geo.data_shards, geo.parity_shards,
+                                         device=device)
+            return window_codec_for(geo, device=device)
     if not isinstance(codec, cls):
         raise ValueError(f"a {type(codec).__name__} cannot code a "
                          f"{geo.code_kind!r} geometry")
@@ -138,41 +147,32 @@ class _BufferPool:
 
 def _iter_encode_batches(dat, dat_size: int, geo: EcGeometry,
                          batch_bytes: int):
-    """Yield the [k, width] data matrices write_ec_files encodes, in shard
-    append order: large rows first (column slices gathered across the k
+    """Yield one gather per [k, width] data matrix write_ec_files encodes,
+    in shard append order: a function that copies the matrix out of .dat
+    and returns it.  Large rows first (column slices gathered across the k
     large blocks), then batched small rows, zero-padding the final partial
     row exactly like encodeDataOneBatch (ec_encoder.go:173).
 
-    Yielded arrays are views into a cycled buffer pool: each stays valid
-    until PIPELINE_DEPTH + 1 further batches have been yielded."""
+    Call each gather once, in order: the arrays they return are views into
+    a cycled buffer pool, each valid until PIPELINE_DEPTH + 1 further
+    batches have been gathered."""
     k = geo.data_shards
-    pos = 0
-    remaining = dat_size
     large_row = geo.large_row_size()
+    small_row = geo.small_row_size()
+    block = geo.small_block_size
     # small-row batches are at least one whole block wide even when
     # batch_bytes is smaller (n_rows floors at 1)
-    pool = _BufferPool(PIPELINE_DEPTH + 2,
-                       (k, max(batch_bytes, geo.small_block_size)))
-    while remaining >= large_row:
-        # one large row = k large blocks; stream it in batch_bytes column
-        # slices, gathered into a [k, width] matrix
-        for col in range(0, geo.large_block_size, batch_bytes):
-            width = min(batch_bytes, geo.large_block_size - col)
-            data = pool.next()[:, :width]
-            for s in range(k):
-                off = pos + s * geo.large_block_size + col
-                data[s] = dat[off:off + width]
-            yield data
-        pos += large_row
-        remaining -= large_row
-    small_row = geo.small_row_size()
-    rows_per_batch = max(1, batch_bytes // geo.small_block_size)
-    block = geo.small_block_size
-    while remaining > 0:
-        n_rows = min(rows_per_batch,
-                     (remaining + small_row - 1) // small_row)
-        width = n_rows * block
+    pool = _BufferPool(PIPELINE_DEPTH + 2, (k, max(batch_bytes, block)))
+
+    def gather_large(pos, col, width):
         data = pool.next()[:, :width]
+        for s in range(k):
+            off = pos + s * geo.large_block_size + col
+            data[s] = dat[off:off + width]
+        return data
+
+    def gather_small(pos, n_rows):
+        data = pool.next()[:, :n_rows * block]
         # shard s of row r sits at .dat offset pos + r*small_row + s*block
         for r in range(n_rows):
             row_off = pos + r * small_row
@@ -184,7 +184,23 @@ def _iter_encode_batches(dat, dat_size: int, geo: EcGeometry,
                     dst[:n] = dat[o:o + n]
                 if n < block:
                     dst[n:] = 0    # zero-pad the final partial row
-        yield data
+        return data
+
+    pos = 0
+    remaining = dat_size
+    while remaining >= large_row:
+        # one large row = k large blocks; stream it in batch_bytes column
+        # slices, gathered into a [k, width] matrix
+        for col in range(0, geo.large_block_size, batch_bytes):
+            width = min(batch_bytes, geo.large_block_size - col)
+            yield functools.partial(gather_large, pos, col, width)
+        pos += large_row
+        remaining -= large_row
+    rows_per_batch = max(1, batch_bytes // block)
+    while remaining > 0:
+        n_rows = min(rows_per_batch,
+                     (remaining + small_row - 1) // small_row)
+        yield functools.partial(gather_small, pos, n_rows)
         pos += n_rows * small_row
         remaining -= min(remaining, n_rows * small_row)
 
@@ -203,30 +219,39 @@ def write_ec_files(base_path: str, geo: EcGeometry = DEFAULT_GEOMETRY,
 
     Pipelined: the calling thread reads batch N+1 from .dat and submits its
     encode while the device computes batch N and a writer thread appends
-    batch N-1's shards."""
-    codec = codec_for(geo, codec)
-    dat, dat_size = _open_dat(base_path)
-    outputs = [open(base_path + to_ext(i), "wb")
-               for i in range(geo.total_shards)]
-    k = geo.data_shards
+    batch N-1's shards.  The job ec.encode_volume, named by the volume's
+    base name."""
+    with job("ec.encode_volume", os.path.basename(base_path)):
+        codec = codec_for(geo, codec)
+        label = codec.label
+        dat, dat_size = _open_dat(base_path)
+        outputs = [open(base_path + to_ext(i), "wb")
+                   for i in range(geo.total_shards)]
+        k = geo.data_shards
 
-    def produce():
-        for data in _iter_encode_batches(dat, dat_size, geo, batch_bytes):
-            yield data, codec.encode_begin(data)
+        def produce():
+            for gather in _iter_encode_batches(dat, dat_size, geo,
+                                               batch_bytes):
+                with stage("ec_read", label, "encode"):
+                    data = gather()
+                yield data, codec.encode_begin(data)
 
-    def consume(item):
-        data, fetch = item
-        for s in range(k):
-            outputs[s].write(data[s])
-        parity = fetch()
-        for p in range(geo.parity_shards):
-            outputs[k + p].write(parity[p])
+        def consume(item):
+            data, fetch = item
+            # one write stage per batch; the wait for the parity, between
+            # the data and the parity writes, is a stage of its own
+            with stage("ec_write", label, "encode"):
+                for s in range(k):
+                    outputs[s].write(data[s])
+                parity = fetch()
+                for p in range(geo.parity_shards):
+                    outputs[k + p].write(parity[p])
 
-    try:
-        _pipelined(produce(), consume)
-    finally:
-        for f in outputs:
-            f.close()
+        try:
+            _pipelined(produce(), consume, label, "encode")
+        finally:
+            for f in outputs:
+                f.close()
 
 
 def encode_ec_files_batch(base_paths: list[str],
@@ -257,59 +282,70 @@ def _encode_group(bases: list[str], geo: EcGeometry,
                   codec: "Codec | None", batch_bytes: int) -> None:
     """One same-shard-size group of encode_ec_files_batch: V volumes'
     batch iterators advance in lockstep (equal shard size => provably
-    equal width sequences) and every window is one grouped dispatch."""
-    codec = codec_for(geo, codec)
-    k, m, v = geo.data_shards, geo.parity_shards, len(bases)
-    small = geo.small_block_size
-    # per-volume batch width shrinks with group size so the grouped
-    # dispatch stays near batch_bytes of host copies total; floored to
-    # one small block (width sequences must stay block-aligned)
-    vol_batch = max(small, batch_bytes // v // small * small)
-    rs = geo.code_kind == "rs"
-    dats = [_open_dat(b) for b in bases]
-    outputs = [[open(b + to_ext(i), "wb")
-                for i in range(geo.total_shards)] for b in bases]
-    sentinel = object()
+    equal width sequences) and every window is one grouped dispatch.  The
+    job ec.encode_volume, named by the volumes' base names."""
+    with job("ec.encode_volume", ",".join(map(os.path.basename, bases))):
+        codec = codec_for(geo, codec)
+        label = codec.label
+        k, m, v = geo.data_shards, geo.parity_shards, len(bases)
+        small = geo.small_block_size
+        # per-volume batch width shrinks with group size so the grouped
+        # dispatch stays near batch_bytes of host copies total; floored to
+        # one small block (width sequences must stay block-aligned)
+        vol_batch = max(small, batch_bytes // v // small * small)
+        rs = geo.code_kind == "rs"
+        dats = [_open_dat(b) for b in bases]
+        outputs = [[open(b + to_ext(i), "wb")
+                    for i in range(geo.total_shards)] for b in bases]
+        sentinel = object()
 
-    def produce():
-        iters = [_iter_encode_batches(dat, size, geo, vol_batch)
-                 for dat, size in dats]
-        for parts in itertools.zip_longest(*iters, fillvalue=sentinel):
-            # misalignment here would interleave volumes' bytes into the
-            # wrong shards, so fail rather than truncate
-            if any(p is sentinel for p in parts) \
-                    or len({p.shape[1] for p in parts}) != 1:
-                raise RuntimeError(
-                    "same-shard-size volumes must batch in lockstep")
-            # stack/concatenate COPY out of the per-volume cycled pools,
-            # so the yielded batch stays valid in the pipeline
-            if rs:     # RSCodec counts the volumes on the leading axis
-                data = np.stack(parts)
-                yield data, codec.encode_begin(data)
-            else:
-                data = np.concatenate(parts, axis=1)
-                yield data, codec.encode_begin(data, volumes=v)
+        def produce():
+            iters = [_iter_encode_batches(dat, size, geo, vol_batch)
+                     for dat, size in dats]
+            for gathers in itertools.zip_longest(*iters,
+                                                 fillvalue=sentinel):
+                # misalignment here would interleave volumes' bytes into
+                # the wrong shards, so fail rather than truncate
+                if any(g is sentinel for g in gathers):
+                    raise RuntimeError(
+                        "same-shard-size volumes must batch in lockstep")
+                with stage("ec_read", label, "encode"):
+                    parts = [g() for g in gathers]
+                    if len({p.shape[1] for p in parts}) != 1:
+                        raise RuntimeError(
+                            "same-shard-size volumes must batch in lockstep")
+                    # stack/concatenate COPY out of the per-volume cycled
+                    # pools, so the yielded batch stays valid in the
+                    # pipeline
+                    data = np.stack(parts) if rs \
+                        else np.concatenate(parts, axis=1)
+                if rs:     # RSCodec counts the volumes on the leading axis
+                    yield data, codec.encode_begin(data)
+                else:
+                    yield data, codec.encode_begin(data, volumes=v)
 
-    def consume(item):
-        data, fetch = item
-        width = data.shape[-1] if rs else data.shape[-1] // v
-        for vi in range(v):
-            dpart = data[vi] if rs else data[:, vi * width:(vi + 1) * width]
-            for s in range(k):
-                outputs[vi][s].write(dpart[s])
-        parity = fetch()
-        for vi in range(v):
-            ppart = parity[vi] if rs \
-                else parity[:, vi * width:(vi + 1) * width]
-            for p in range(m):
-                outputs[vi][k + p].write(ppart[p])
+        def consume(item):
+            data, fetch = item
+            width = data.shape[-1] if rs else data.shape[-1] // v
+            with stage("ec_write", label, "encode"):
+                for vi in range(v):
+                    dpart = data[vi] if rs \
+                        else data[:, vi * width:(vi + 1) * width]
+                    for s in range(k):
+                        outputs[vi][s].write(dpart[s])
+                parity = fetch()
+                for vi in range(v):
+                    ppart = parity[vi] if rs \
+                        else parity[:, vi * width:(vi + 1) * width]
+                    for p in range(m):
+                        outputs[vi][k + p].write(ppart[p])
 
-    try:
-        _pipelined(produce(), consume)
-    finally:
-        for files in outputs:
-            for f in files:
-                f.close()
+        try:
+            _pipelined(produce(), consume, label, "encode")
+        finally:
+            for files in outputs:
+                for f in files:
+                    f.close()
 
 
 def rebuild_ec_files(base_path: str, geo: "EcGeometry | None" = None,
@@ -322,59 +358,64 @@ def rebuild_ec_files(base_path: str, geo: "EcGeometry | None" = None,
     `stats`, when given, is filled with the rebuild's read accounting
     ({"bytes_read", "plan_kind", ...}): how the clay and LRC repair-IO
     advantages are measured.  Clay and LRC volumes take codes.rebuild_clay
-    and codes.rebuild_lrc."""
-    if geo is None:
-        from . import geometry_from_vif
-        geo = geometry_from_vif(base_path)
-    n = geo.total_shards
-    have = [os.path.exists(base_path + to_ext(i)) for i in range(n)]
-    missing = [i for i in range(n) if not have[i]]
-    if not missing:
-        return []
-    if sum(have) < geo.data_shards:
-        raise ValueError(
-            f"need >= {geo.data_shards} shards to rebuild, have {sum(have)}")
-    codec = codec_for(geo, codec)
-    if geo.code_kind == "clay":
-        return rebuild_clay(base_path, geo, missing, batch_bytes, codec,
-                            stats=stats)
-    if geo.code_kind == "lrc":
-        return rebuild_lrc(base_path, geo, missing, batch_bytes, codec,
-                           stats=stats)
-    inputs = {i: np.memmap(base_path + to_ext(i), dtype=np.uint8, mode="r")
-              for i in range(n) if have[i]}
-    shard_size = len(next(iter(inputs.values())))
-    for i, arr in inputs.items():
-        if len(arr) != shard_size:
-            raise ValueError(f"shard {i} size {len(arr)} != {shard_size}")
-    outputs = {i: open(base_path + to_ext(i), "wb") for i in missing}
-    used = [i for i in range(n) if have[i]][:geo.data_shards]
+    and codes.rebuild_lrc.  The job ec.rebuild, named by the volume's base
+    name."""
+    with job("ec.rebuild", os.path.basename(base_path)):
+        if geo is None:
+            from . import geometry_from_vif
+            geo = geometry_from_vif(base_path)
+        n = geo.total_shards
+        have = [os.path.exists(base_path + to_ext(i)) for i in range(n)]
+        missing = [i for i in range(n) if not have[i]]
+        if not missing:
+            return []
+        if sum(have) < geo.data_shards:
+            raise ValueError(f"need >= {geo.data_shards} shards to "
+                             f"rebuild, have {sum(have)}")
+        codec = codec_for(geo, codec)
+        if geo.code_kind == "clay":
+            return rebuild_clay(base_path, geo, missing, batch_bytes, codec,
+                                stats=stats)
+        if geo.code_kind == "lrc":
+            return rebuild_lrc(base_path, geo, missing, batch_bytes, codec,
+                               stats=stats)
+        label = codec.label
+        inputs = {i: np.memmap(base_path + to_ext(i), dtype=np.uint8,
+                               mode="r") for i in range(n) if have[i]}
+        shard_size = len(next(iter(inputs.values())))
+        for i, arr in inputs.items():
+            if len(arr) != shard_size:
+                raise ValueError(
+                    f"shard {i} size {len(arr)} != {shard_size}")
+        outputs = {i: open(base_path + to_ext(i), "wb") for i in missing}
+        used = [i for i in range(n) if have[i]][:geo.data_shards]
 
-    def produce():
-        for off in range(0, shard_size, batch_bytes):
-            width = min(batch_bytes, shard_size - off)
-            # memmap slices stay lazy; reconstruct materializes only the
-            # first k present shards it actually decodes from
-            shards: list[np.ndarray | None] = [
-                inputs[i][off:off + width] if have[i] else None
-                for i in range(n)]
-            yield codec.reconstruct_begin(shards)
+        def produce():
+            for off in range(0, shard_size, batch_bytes):
+                width = min(batch_bytes, shard_size - off)
+                # memmap slices stay lazy; reconstruct materializes only
+                # the first k present shards it actually decodes from
+                shards: list[np.ndarray | None] = [
+                    inputs[i][off:off + width] if have[i] else None
+                    for i in range(n)]
+                yield codec.reconstruct_begin(shards)
 
-    def consume(fetch):
-        rebuilt = fetch()
-        for i in missing:
-            outputs[i].write(rebuilt[i])
+        def consume(fetch):
+            rebuilt = fetch()
+            with stage("ec_write", label, "rebuild"):
+                for i in missing:
+                    outputs[i].write(rebuilt[i])
 
-    try:
-        _pipelined(produce(), consume)
-    finally:
-        for f in outputs.values():
-            f.close()
-    if stats is not None:
-        stats["bytes_read"] = len(used) * shard_size
-        stats["plan_kind"] = "rs-full"
-        stats["read_shards"] = used
-    return missing
+        try:
+            _pipelined(produce(), consume, label, "rebuild")
+        finally:
+            for f in outputs.values():
+                f.close()
+        if stats is not None:
+            stats["bytes_read"] = len(used) * shard_size
+            stats["plan_kind"] = "rs-full"
+            stats["read_shards"] = used
+        return missing
 
 
 def rebuild_ec_files_batch(base_paths: list[str],
@@ -421,6 +462,7 @@ def rebuild_ec_files_batch(base_paths: list[str],
         n = geo.total_shards
         missing = [i for i in range(n) if not have[i]]
         group_codec = codec_for(geo, codec)
+        label = group_codec.label
         inputs = {b: {i: np.memmap(b + to_ext(i), dtype=np.uint8, mode="r")
                       for i in range(n) if have[i]} for b in bases}
         for b in bases:
@@ -445,12 +487,14 @@ def rebuild_ec_files_batch(base_paths: list[str],
 
         def consume(fetch):
             rebuilt = fetch()  # missing -> [V, width]
-            for i in missing:
-                for vi, b in enumerate(bases):
-                    outputs[b][i].write(rebuilt[i][vi])
+            with stage("ec_write", label, "rebuild"):
+                for i in missing:
+                    for vi, b in enumerate(bases):
+                        outputs[b][i].write(rebuilt[i][vi])
 
         try:
-            _pipelined(produce(), consume)
+            with job("ec.rebuild", ",".join(map(os.path.basename, bases))):
+                _pipelined(produce(), consume, label, "rebuild")
         finally:
             for b in bases:
                 for f in outputs[b].values():

@@ -30,6 +30,12 @@ torch.set_num_threads(1)
 FAMILIES = ("seaweedfs_codec_op_seconds", "seaweedfs_codec_bytes_total",
             "seaweedfs_codec_dispatch_total",
             "seaweedfs_codec_dispatch_volumes_total")
+# the port's host-stage histograms, after the families both packages have
+STAGE_FAMILIES = ("seaweedfs_ec_read_seconds", "seaweedfs_ec_write_seconds",
+                  "seaweedfs_ec_queue_wait_seconds",
+                  "seaweedfs_codec_submit_seconds",
+                  "seaweedfs_codec_wait_seconds",
+                  "seaweedfs_needle_parse_seconds")
 
 
 class Delta:
@@ -75,7 +81,7 @@ def test_render_equals_reference_text(exemplars):
 def test_codec_registry_families_and_label_keys():
     RSCodec(4, 2, device="cpu").encode(np.zeros((4, 64), np.uint8))
     text = codec_mod.codec_metrics().registry.render()
-    for fam in FAMILIES:
+    for fam in FAMILIES + STAGE_FAMILIES:
         kind = "histogram" if fam.endswith("_seconds") else "counter"
         assert f"# TYPE {fam} {kind}" in text
     samples = [ln for ln in text.splitlines() if not ln.startswith("#")]
@@ -83,10 +89,15 @@ def test_codec_registry_families_and_label_keys():
     for ln in samples:
         keys = re.findall(r'(\w+)="', ln)
         assert keys in (["backend", "op"], ["backend", "op", "le"]), ln
-    # the same four families, in the same order
+    # the JAX package's four families first, in its order, then exactly
+    # the six stage histograms, in this order
     ref_text = ref_codec_mod.codec_metrics().registry.render()
-    assert re.findall(r"# TYPE (\S+ \S+)", text) == \
-        re.findall(r"# TYPE (\S+ \S+)", ref_text)
+    types = re.findall(r"# TYPE (\S+ \S+)", text)
+    ref_types = re.findall(r"# TYPE (\S+ \S+)", ref_text)
+    assert len(ref_types) == len(FAMILIES)
+    assert types[:len(ref_types)] == ref_types
+    assert types[len(ref_types):] == [f"{fam} histogram"
+                                      for fam in STAGE_FAMILIES]
 
 
 # -- codec calls ---------------------------------------------------------------
