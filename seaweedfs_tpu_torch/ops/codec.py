@@ -447,8 +447,9 @@ class RSCodec:
         if not targets:
             res = list(shards)
             return lambda: res
-        # the stack reads the survivors (lazily mapped shard slices in a
-        # rebuild) into the staging layout: the dispatch's host part
+        # the stack copies the survivors into the staging layout: the
+        # dispatch's host part (rebuild_ec_files gathers them itself and
+        # calls reconstruct_rows_begin)
         with stage("codec_submit", self.label, "reconstruct"):
             planes = self.decode_planes(tuple(present), tuple(targets))
             chosen = np.stack([np.asarray(shards[i], dtype=np.uint8)
@@ -462,6 +463,22 @@ class RSCodec:
                 out[t] = np.ascontiguousarray(rec[..., row, :])
             return out
         return fetch
+
+    def reconstruct_rows_begin(self, survivors: np.ndarray, used, targets):
+        """Issue the rebuild of shards `targets` from survivors the caller
+        has gathered: `survivors` [k, B] holds the shards `used` (k ids)
+        in that row order.  Returns fetch() -> [len(targets), B], the rows
+        of `targets` in that order.  Nothing is stacked: the dispatch
+        copies `survivors` once, into its pinned staging."""
+        survivors = np.asarray(survivors, dtype=np.uint8)
+        if survivors.ndim != 2 or survivors.shape[0] != self.k \
+                or len(used) != self.k:
+            raise ValueError(f"expected [{self.k}, B] survivors of "
+                             f"{self.k} shards, got {survivors.shape} of "
+                             f"{len(used)}")
+        with stage("codec_submit", self.label, "reconstruct"):
+            planes = self.decode_planes(tuple(used), tuple(targets))
+            return self._matmul_begin(planes, survivors, "reconstruct")
 
     def verify(self, shards: list[np.ndarray]) -> bool:
         """Check parity consistency (reference enc.Verify)."""

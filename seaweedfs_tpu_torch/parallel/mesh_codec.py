@@ -160,7 +160,40 @@ class MeshCodec:
             raise ValueError(
                 "MeshCodec.reconstruct expects [B] or [V, B] shards")
         lead = chosen.shape[1:-1]        # () or (V,)
-        flat = chosen.reshape(self.k, -1)  # each volume's bytes contiguous
+        pending = self._reconstruct_issue(
+            present, targets, chosen.reshape(self.k, -1))
+
+        def fetch():
+            out = list(shards)
+            for t, row in zip(targets, pending()):
+                out[t] = row.reshape(*lead, -1)
+            return out
+        volumes = lead[0] if lead else 1
+        return metered_fetch(fetch, self.label, "reconstruct", chosen.nbytes,
+                             t0, volumes=volumes)
+
+    def reconstruct_rows_begin(self, survivors: np.ndarray, used, targets):
+        """RSCodec.reconstruct_rows_begin on the mesh: `survivors` [k, B]
+        holds the shards `used` in that row order; only `targets` are
+        rebuilt.  Returns fetch() -> [len(targets), B]."""
+        t0 = time.perf_counter()
+        survivors = np.asarray(survivors, dtype=np.uint8)
+        if survivors.ndim != 2 or survivors.shape[0] != self.k \
+                or len(used) != self.k:
+            raise ValueError(f"expected [{self.k}, B] survivors of "
+                             f"{self.k} shards, got {survivors.shape} of "
+                             f"{len(used)}")
+        pending = self._reconstruct_issue(list(used), list(targets),
+                                          survivors)
+        return metered_fetch(lambda: np.stack(pending()), self.label,
+                             "reconstruct", survivors.nbytes, t0)
+
+    def _reconstruct_issue(self, present: list, targets: list,
+                           flat: np.ndarray):
+        """Lay `flat` [k, B] (the first k of `present`, in order) out on
+        the mesh and issue `targets` in chunks of at most m; `flat` is
+        copied before this returns.  Returns a drain: the rows of
+        `targets`, in order."""
         b = flat.shape[-1]
         padded = (self.k_pad, -(-b // self._rec_mult) * self._rec_mult)
         pending = []
@@ -169,19 +202,12 @@ class MeshCodec:
             for i in range(0, len(targets), self.m):
                 chunk = tuple(targets[i:i + self.m])
                 rec = self.reconstruct_device(tuple(present), chunk, parts)
-                pending.append((chunk, gather_begin(
-                    self.mesh, rec, (None, "b"), (len(chunk), b))))
+                pending.append(gather_begin(
+                    self.mesh, rec, (None, "b"), (len(chunk), b)))
 
-        def fetch():
-            out = list(shards)
-            for chunk, part in pending:
-                rec = part()
-                for row, t in enumerate(chunk):
-                    out[t] = rec[row].reshape(*lead, -1)
-            return out
-        volumes = lead[0] if lead else 1
-        return metered_fetch(fetch, self.label, "reconstruct", chosen.nbytes,
-                             t0, volumes=volumes)
+        def drain():
+            return [row for part in pending for row in part()]
+        return drain
 
     def verify(self, shards: list) -> bool:
         """Check parity consistency (reference enc.Verify)."""

@@ -8,8 +8,9 @@ Capability-equivalent to weed/storage/erasure_coding/ec_encoder.go
   a [k, B] batch, and ONE codec call (the GF(2^8) bit-plane kernel) produces
   all parity for the batch.  Data shards are pure memory views of the read
   buffer; only parity costs compute.
-- Rebuild reads all surviving shards' aligned windows into a [n_have, B]
-  batch and reconstructs every missing shard in one codec call per window.
+- Rebuild reads the first k surviving shards' aligned windows into one
+  [k, B] buffer and reconstructs every missing shard in one codec call per
+  window.
 - Clay and LRC geometries (`code_kind="clay"` / `"lrc"`) take the window
   codecs and rebuilds of storage/ec/codes.py: the same shard files, other
   parity math.
@@ -388,23 +389,31 @@ def rebuild_ec_files(base_path: str, geo: "EcGeometry | None" = None,
                 raise ValueError(
                     f"shard {i} size {len(arr)} != {shard_size}")
         outputs = {i: open(base_path + to_ext(i), "wb") for i in missing}
-        used = [i for i in range(n) if have[i]][:geo.data_shards]
+        k = geo.data_shards
+        used = [i for i in range(n) if have[i]][:k]
+        # one gather buffer serves every window: the codec copies the
+        # survivors (into its staging) before reconstruct_rows_begin returns
+        buf = np.empty(k * min(batch_bytes, shard_size), dtype=np.uint8)
+        gathered = 0
 
         def produce():
+            nonlocal gathered
             for off in range(0, shard_size, batch_bytes):
                 width = min(batch_bytes, shard_size - off)
-                # memmap slices stay lazy; reconstruct materializes only
-                # the first k present shards it actually decodes from
-                shards: list[np.ndarray | None] = [
-                    inputs[i][off:off + width] if have[i] else None
-                    for i in range(n)]
-                yield codec.reconstruct_begin(shards)
+                # the first k survivors' window, read into a contiguous
+                # [k, width] view of the buffer
+                with stage("ec_read", label, "rebuild"):
+                    survivors = buf[:k * width].reshape(k, width)
+                    for row, i in enumerate(used):
+                        survivors[row] = inputs[i][off:off + width]
+                gathered += survivors.nbytes
+                yield codec.reconstruct_rows_begin(survivors, used, missing)
 
         def consume(fetch):
             rebuilt = fetch()
             with stage("ec_write", label, "rebuild"):
-                for i in missing:
-                    outputs[i].write(rebuilt[i])
+                for row, i in enumerate(missing):
+                    outputs[i].write(rebuilt[row])
 
         try:
             _pipelined(produce(), consume, label, "rebuild")
@@ -412,7 +421,7 @@ def rebuild_ec_files(base_path: str, geo: "EcGeometry | None" = None,
             for f in outputs.values():
                 f.close()
         if stats is not None:
-            stats["bytes_read"] = len(used) * shard_size
+            stats["bytes_read"] = gathered
             stats["plan_kind"] = "rs-full"
             stats["read_shards"] = used
         return missing
@@ -479,10 +488,11 @@ def rebuild_ec_files_batch(base_paths: list[str],
         def produce():
             for off in range(0, shard_size, window):
                 width = min(window, shard_size - off)
-                shards: list[np.ndarray | None] = [
-                    np.stack([np.asarray(inputs[b][i][off:off + width])
-                              for b in bases]) if have[i] else None
-                    for i in range(n)]
+                with stage("ec_read", label, "rebuild"):
+                    shards: list[np.ndarray | None] = [
+                        np.stack([np.asarray(inputs[b][i][off:off + width])
+                                  for b in bases]) if have[i] else None
+                        for i in range(n)]
                 yield group_codec.reconstruct_begin(shards)
 
         def consume(fetch):

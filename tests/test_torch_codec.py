@@ -194,6 +194,28 @@ def test_codec_batched_reconstruct_matches_reference(codec, ref_codecs):
         assert np.array_equal(got[i], full[i])
 
 
+@pytest.mark.parametrize("lost", [[3], [1, 4, 8, 12], [10, 11, 12, 13]])
+def test_codec_reconstruct_rows_matches_reference(codec, ref_codecs, lost):
+    """Survivors gathered by the caller ([k, B], the rebuild's form): the
+    rows of the lost shards, in the order asked, as the JAX package's
+    reconstruct gives them."""
+    data = np.random.default_rng(30 + len(lost)).integers(
+        0, 256, (10, 513), dtype=np.uint8)
+    full = list(data) + list(codec.encode(data))
+    used = [i for i in range(14) if i not in lost][:10]
+    survivors = np.stack([full[i] for i in used])
+    targets = lost[::-1]
+    got = codec.reconstruct_rows_begin(survivors, used, targets)()
+    want = ref_codecs["numpy"].reconstruct(
+        [None if i in lost else s for i, s in enumerate(full)])
+    assert got.shape == (len(lost), 513)
+    for row, t in enumerate(targets):
+        assert np.array_equal(got[row], want[t]), t
+        assert np.array_equal(got[row], full[t]), t
+    with pytest.raises(ValueError, match="survivors"):
+        codec.reconstruct_rows_begin(survivors[:9], used[:9], targets)
+
+
 def test_codec_too_few_shards_raises(codec, ref_codecs):
     data = np.zeros((10, 64), dtype=np.uint8)
     full = list(data) + list(codec.encode(data))

@@ -96,17 +96,58 @@ def test_encode_files_byte_identical(twin_volumes, codec, ref_codec):
         os.path.getsize(base + ".dat")
 
 
-@pytest.mark.parametrize("lost", [[5], [0, 13], [1, 4, 10], [0, 7, 10, 13]])
-def test_rebuild_byte_identical(twin_volumes, codec, lost):
-    _, port_dir, _ = twin_volumes
+@pytest.mark.parametrize("lost", [[5], [0, 13], [1, 4, 10], [0, 7, 10, 13],
+                                  [1, 4, 8, 12], [10, 11, 12, 13]])
+def test_rebuild_byte_identical(twin_volumes, codec, ref_codec, lost):
+    """Every restored shard equals the one encoded and the JAX package's
+    rebuild of the same loss."""
+    ref_dir, port_dir, _ = twin_volumes
     base = os.path.join(port_dir, "7")
+    ref_base = os.path.join(ref_dir, "7")
     ec.encode_volume_to_ec(base, 3, GEO, codec)
+    ref_ec.encode_volume_to_ec(ref_base, 3, REF_GEO, ref_codec)
     want = {s: _read(base + ec.to_ext(s)) for s in lost}
     for s in lost:
         os.remove(base + ec.to_ext(s))
+        os.remove(ref_base + ec.to_ext(s))
     assert ec.rebuild_ec_files(base, codec=codec, batch_bytes=4096) == lost
+    assert ref_ec.rebuild_ec_files(ref_base, codec=ref_codec,
+                                   batch_bytes=4096) == lost
     for s in lost:
-        assert _read(base + ec.to_ext(s)) == want[s], s
+        got = _read(base + ec.to_ext(s))
+        assert got == want[s] == _read(ref_base + ec.to_ext(s)), s
+
+
+@pytest.mark.parametrize("lost", [[3], [1, 4, 8, 12]])
+def test_rebuild_counts_the_bytes_it_gathers(twin_volumes, codec,
+                                             ref_codec, lost, monkeypatch):
+    """An RS rebuild's `bytes_read` is the sum of the survivors' windows
+    handed to the codec, which is k whole shards, as the JAX package's
+    rebuild reports."""
+    ref_dir, port_dir, _ = twin_volumes
+    base = os.path.join(port_dir, "7")
+    ref_base = os.path.join(ref_dir, "7")
+    ec.encode_volume_to_ec(base, 3, GEO, codec)
+    ref_ec.encode_volume_to_ec(ref_base, 3, REF_GEO, ref_codec)
+    shard = os.path.getsize(base + ec.to_ext(0))
+    for s in lost:
+        os.remove(base + ec.to_ext(s))
+        os.remove(ref_base + ec.to_ext(s))
+    handed = []
+    real = codec.reconstruct_rows_begin
+
+    def spy(survivors, used, targets):
+        handed.append(survivors.nbytes)
+        return real(survivors, used, targets)
+
+    monkeypatch.setattr(codec, "reconstruct_rows_begin", spy)
+    stats, ref_stats = {}, {}
+    ec.rebuild_ec_files(base, codec=codec, batch_bytes=4096, stats=stats)
+    ref_ec.rebuild_ec_files(ref_base, codec=ref_codec, batch_bytes=4096,
+                            stats=ref_stats)
+    assert len(handed) == -(-shard // 4096)
+    assert stats["bytes_read"] == sum(handed) == 10 * shard \
+        == ref_stats["bytes_read"]
 
 
 def test_rebuild_noop_and_too_many_lost(twin_volumes, codec):

@@ -358,6 +358,34 @@ def test_mesh_reconstruct_matches_reference(mesh8, ref_mesh8, lost,
         assert np.array_equal(got[i], ref[i]), i
 
 
+@pytest.mark.parametrize("lost", [[3], [1, 4, 8, 12], [10, 11, 12, 13]])
+def test_mesh_reconstruct_rows_decodes_only_targets(mesh8, ref_mesh8, lost):
+    """The rebuild's form on the mesh: survivors gathered by the caller,
+    the rows of `lost` in the order asked, equal to the JAX package's
+    list-form reconstruct, and the decode matrix holds only those rows."""
+    shards = _codeword(75)
+    used = [i for i in range(14) if i not in lost][:10]
+    targets = lost[::-1]
+    codec = mc.MeshCodec(10, 4, mesh=mesh8)
+    chunks = []
+    real = codec.reconstruct_device
+
+    def spy(present, chunk, parts):
+        chunks.append(chunk)
+        return real(present, chunk, parts)
+
+    with mock.patch.object(codec, "reconstruct_device", spy):
+        got = codec.reconstruct_rows_begin(
+            np.stack([shards[i] for i in used]), used, targets)()
+    assert chunks == [tuple(targets)]
+    ref = ref_mc.MeshCodec(10, 4, mesh=ref_mesh8).reconstruct(
+        [None if i in lost else shards[i] for i in range(14)])
+    assert got.shape == (len(lost), shards[0].shape[-1])
+    for row, t in enumerate(targets):
+        assert np.array_equal(got[row], shards[t]), t
+        assert np.array_equal(got[row], ref[t]), t
+
+
 def test_mesh_reconstruct_batched_volumes(mesh8, ref_mesh8):
     V, B = 5, 384
     shards = _codeword(80, shape=(V, B))      # [14, V, B]

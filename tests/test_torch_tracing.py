@@ -199,11 +199,12 @@ def encoded(needle_volume, tmp_path, request):
 
 @pytest.mark.parametrize("encoded,lost", [
     ("rs", [2, 11]), ("clay", [3]), ("clay", [1, 12]), ("lrc", [3]),
-    ("lrc", [1, 12])], indirect=["encoded"])
+    ("lrc", [1, 12]), ("rs", [1, 4, 8, 12])], indirect=["encoded"])
 def test_rebuild_stages(encoded, lost):
-    """Per window: RS one reconstruct dispatch (its lazily mapped slices
-    read in the submit), a write and a queue wait (plus the end of the
-    stream); Clay and LRC a read, a dispatch and a write, in sequence."""
+    """Per window: RS a read of the k survivors into the codec's layout,
+    one reconstruct dispatch, a write and a queue wait (plus the end of
+    the stream); Clay and LRC a read, a dispatch and a write, in
+    sequence."""
     kind, geo, base, ref_base = encoded
     golden = {}
     for s in lost:
@@ -219,7 +220,8 @@ def test_rebuild_stages(encoded, lost):
     w = -(-os.path.getsize(base + ec.to_ext(lost[0])) // BATCH)
     lb = LABEL[kind]
     if kind == "rs":
-        want = {("codec_submit", lb, "reconstruct"): w,
+        want = {("ec_read", lb, "rebuild"): w,
+                ("codec_submit", lb, "reconstruct"): w,
                 ("codec_wait", lb, "reconstruct"): w,
                 ("ec_write", lb, "rebuild"): w,
                 ("ec_queue_wait", lb, "rebuild"): w + 1}
@@ -237,6 +239,44 @@ def test_rebuild_stages(encoded, lost):
         with open(base + ec.to_ext(s), "rb") as f:
             assert f.read() == golden[s], s
     _same_files(base, ref_base, _shards())
+
+
+def test_rebuild_batch_stages(needle_volume, tmp_path):
+    """A fleet of three same-size RS volumes with one loss mask: per
+    grouped window a read (the volumes' survivors stacked), a dispatch, a
+    write and a queue wait (plus the end of the stream); shards as the JAX
+    package's."""
+    src, _ = needle_volume
+    geo, ref_geo = geos("rs")
+    lost = [1, 4, 8, 12]
+    bases = [_copy(src, tmp_path / f"port{v}") for v in range(3)]
+    ref_bases = [_copy(src, tmp_path / f"ref{v}") for v in range(3)]
+    codec = codec_for(geo, device="cpu")
+    for base, ref_base in zip(bases, ref_bases):
+        ec.encode_volume_to_ec(base, 3, geo, codec)
+        ref_ec.encode_volume_to_ec(ref_base, 3, ref_geo)
+        for s in lost:
+            os.remove(base + ec.to_ext(s))
+            os.remove(ref_base + ec.to_ext(s))
+    st = Stages()
+    out = st.timed(ec.rebuild_ec_files_batch, bases, BATCH, codec)
+    ref_ec.rebuild_ec_files_batch(ref_bases, batch_bytes=BATCH)
+    assert all(out[b] == lost for b in bases)
+    # the group's window, as rebuild_ec_files_batch takes it
+    window = max(4096, BATCH // 3)
+    w = -(-os.path.getsize(bases[0] + ec.to_ext(0)) // window)
+    lb = LABEL["rs"]
+    assert w > 1
+    assert st.counts() == {
+        ("ec_read", lb, "rebuild"): w,
+        ("codec_submit", lb, "reconstruct"): w,
+        ("codec_wait", lb, "reconstruct"): w,
+        ("ec_write", lb, "rebuild"): w,
+        ("ec_queue_wait", lb, "rebuild"): w + 1}
+    assert st.seconds(PRODUCER) <= st.wall
+    assert st.seconds(WRITER) <= st.wall
+    for base, ref_base in zip(bases, ref_bases):
+        _same_files(base, ref_base, _shards())
 
 
 def _degraded_reads(vol, needles, lost, limit=None):
@@ -377,17 +417,25 @@ def test_encode_spans(needle_volume, tmp_path):
     assert sum(e["name"] == "ec.encode_volume" for e in spans) == 2
 
 
-@pytest.mark.parametrize("encoded", ["clay"], indirect=True)
+@pytest.mark.parametrize("encoded", ["rs", "clay"], indirect=True)
 def test_rebuild_spans(encoded, tmp_path):
+    """The serving binding's rebuild: its job holds the codec's build and
+    the survivors' read; RS writes and waits on the writer thread, Clay
+    on the caller's."""
     kind, geo, base, _ = encoded
     from seaweedfs_tpu_torch import serving
     os.remove(base + ec.to_ext(5))
     bound = serving.bind("cpu")
     spans, nodes = _profiled(lambda: bound.rebuild_ec_files(base),
                              tmp_path)
-    _check_spans(spans, nodes, "ec.rebuild", str(VID),
-                 {"ec.rebuild", "codec.build", "ec.read", "codec.submit",
-                  "codec.wait", "ec.write"})
+    names = {"ec.rebuild", "codec.build", "ec.read", "codec.submit",
+             "codec.wait", "ec.write"}
+    if kind == "rs":
+        _check_spans(spans, nodes, "ec.rebuild", str(VID),
+                     names | {"ec.queue_wait"},
+                     writer=("ec.write", "codec.wait"))
+    else:
+        _check_spans(spans, nodes, "ec.rebuild", str(VID), names)
 
 
 @pytest.mark.parametrize("encoded", ["rs", "clay"], indirect=True)
