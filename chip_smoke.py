@@ -814,6 +814,22 @@ def degraded_reads(ev, dat_path, needles, geo, gone, reads, seed):
             "degraded_p99_ms": float(np.percentile(lat, 99))}
 
 
+def staged_bytes(label: str, op: str) -> dict:
+    """seaweedfs_codec_staged_bytes_total under (label, op), by path."""
+    from seaweedfs_tpu_torch.ops.codec import codec_metrics
+    m = codec_metrics().staged
+    return {p: m.value(label, op, p) for p in ("direct", "copied")}
+
+
+def direct_share(before: dict, after: dict) -> dict:
+    """The staged bytes counted between two `staged_bytes` readings, and
+    the share that the dispatch uploaded from the caller's own staging."""
+    d = {p: after[p] - before[p] for p in before}
+    total = d["direct"] + d["copied"]
+    d["direct_pct"] = 100.0 * d["direct"] / total if total else None
+    return d
+
+
 def phase_main_path(device, card, work_dir, volume_bytes=2 << 30,
                     reads=1000, geo=None, seed=3, codec=None):
     """encode -> rebuild -> degraded reads -> decode on one volume."""
@@ -837,9 +853,14 @@ def phase_main_path(device, card, work_dir, volume_bytes=2 << 30,
         return base + ec.to_ext(s)
 
     # encode: shards + .ecx + .vif
+    staged = staged_bytes(codec.label, "encode")
     t0 = time.perf_counter()
     ec.encode_volume_to_ec(base, version=t.VERSION3, geo=geo, codec=codec)
     res["encode_s"] = time.perf_counter() - t0
+    res["encode_staged"] = direct_share(
+        staged, staged_bytes(codec.label, "encode"))
+    check(res["encode_staged"]["copied"] == 0,
+          "the encode copied a batch into staging")
     shard_size = os.path.getsize(path(0))
     check(shard_size == geo.shard_file_size(dat_size), "shard size")
     # parity of the first 64 KiB of every stripe column, against the tables
@@ -856,9 +877,14 @@ def phase_main_path(device, card, work_dir, volume_bytes=2 << 30,
     lost = [0, 7, 10, 13]
     for s in lost:
         os.replace(path(s), path(s) + ".orig")
+    staged = staged_bytes(codec.label, "reconstruct")
     t0 = time.perf_counter()
     rebuilt = ec.rebuild_ec_files(base, codec=codec)
     res["rebuild_s"] = time.perf_counter() - t0
+    res["rebuild_staged"] = direct_share(
+        staged, staged_bytes(codec.label, "reconstruct"))
+    check(res["rebuild_staged"]["copied"] == 0,
+          "the rebuild copied a window into staging")
     check(rebuilt == lost, f"rebuilt {rebuilt}, expected {lost}")
     for s in lost:
         check(_files_equal(path(s), path(s) + ".orig"),
@@ -892,10 +918,12 @@ def phase_main_path(device, card, work_dir, volume_bytes=2 << 30,
     res["encode_gbps"] = dat_size / res["encode_s"] / 1e9
     res["rebuild_gbps"] = k * shard_size / res["rebuild_s"] / 1e9
     print(f"[disk] encode_volume_to_ec: {res['encode_s']:.2f} s, "
-          f"{res['encode_gbps']:.2f} GB/s of .dat  [{card}]")
+          f"{res['encode_gbps']:.2f} GB/s of .dat, staged bytes direct "
+          f"{res['encode_staged']['direct_pct']:.1f}%  [{card}]")
     print(f"[disk] rebuild of shards {lost}: {res['rebuild_s']:.2f} s, "
           f"{res['rebuild_gbps']:.2f} GB/s of survivor bytes read, "
-          f"byte-identical  [{card}]")
+          f"byte-identical, staged bytes direct "
+          f"{res['rebuild_staged']['direct_pct']:.1f}%  [{card}]")
     print(f"[disk] degraded read_needle x{res['degraded_reads']} "
           f"({res['degraded_distinct_needles']} distinct, shards {gone} "
           f"gone): p50 {res['degraded_p50_ms']:.3f} ms, p99 "
@@ -967,10 +995,12 @@ def phase_clay_disk(torch, card, work_dir, codec, rs_codec,
     def rebuild(lost, plan_kind):
         for s in lost:
             os.replace(path(s), path(s) + ".orig")
-        stats = {}
+        stats, staged = {}, staged_bytes(codec.label, "reconstruct")
         t0 = time.perf_counter()
         rebuilt = ec.rebuild_ec_files(base, codec=codec, stats=stats)
         dt = time.perf_counter() - t0
+        staged = direct_share(staged,
+                              staged_bytes(codec.label, "reconstruct"))
         check(rebuilt == lost, f"clay rebuilt {rebuilt}, expected {lost}")
         check(stats["plan_kind"] == plan_kind,
               f"clay rebuild of {lost}: plan {stats['plan_kind']}")
@@ -982,9 +1012,11 @@ def phase_clay_disk(torch, card, work_dir, codec, rs_codec,
         print(f"[clay-disk] rebuild of {lost}: {plan_kind}, {dt:.2f} s, "
               f"read {stats['bytes_read']} B against RS's k shards "
               f"{rs_bytes} B ({stats['bytes_read'] / rs_bytes:.4f}), "
-              f"byte-identical  [{card}]")
+              f"byte-identical, staged bytes direct "
+              f"{staged['direct_pct']:.1f}%  [{card}]")
         return {"s": dt, "bytes_read": stats["bytes_read"],
-                "rs_bytes_read": rs_bytes, "plan_kind": plan_kind}
+                "rs_bytes_read": rs_bytes, "plan_kind": plan_kind,
+                "staged": staged}
 
     res["rebuild_3"] = rebuild([3], "clay-plane-fused")
     res["rebuild_12"] = rebuild([12], "clay-plane-fused")

@@ -20,6 +20,10 @@ never moves to the CPU by itself.
 volume server's GET /metrics appends to its page; `stage`, `job` and `span`
 time the host stages of the EC paths into it and, while torch.profiler
 records, onto the profiler's clock.
+
+`staging(device, shape)` is the host buffer a bulk path gathers a batch
+into: a codec entry handed that tensor uploads it as it is, where any
+other input is first copied into the dispatch's own staging.
 """
 
 from __future__ import annotations
@@ -103,6 +107,13 @@ class _CodecMetrics:
             setattr(self, attr, self.registry.histogram(
                 f"seaweedfs_{attr}_seconds", help_text, ["backend", "op"],
                 buckets=_CODEC_BUCKETS))
+        # how a dispatch's input reached its upload (`host_staged`,
+        # `gf_apply`)
+        self.staged = self.registry.counter(
+            "seaweedfs_codec_staged_bytes_total",
+            "EC codec dispatch input bytes by path: direct, uploaded from "
+            "the caller's own staging; copied, copied into staging first",
+            ["backend", "op", "path"])
 
     def observe(self, backend: str, op: str, nbytes: int,
                 seconds: float, volumes: int = 1) -> None:
@@ -262,30 +273,88 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def device_call_begin(device: torch.device, stream, inputs: np.ndarray,
+def staging(device, shape) -> torch.Tensor:
+    """A host uint8 tensor of `shape` for a caller to gather one batch
+    into, in place of the copy a dispatch makes otherwise: page-locked
+    when `device` is a CUDA device, plain memory for any other.
+
+    The pinned blocks come from torch's caching host allocator, so they
+    stay resident across jobs and codecs, and a block an upload still
+    reads is not handed out again.  Fill the tensor through its numpy view
+    (`.numpy()`, which keeps it alive) and hand the tensor itself to a
+    codec entry to upload it with no host copy (`host_staged`); the mesh
+    arms read it as any array."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            return torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+    return torch.empty(shape, dtype=torch.uint8)
+
+
+def host_input(x) -> "np.ndarray | torch.Tensor":
+    """A codec entry's input before its dispatch: a tensor as it is (see
+    `host_staged`), anything else as a uint8 numpy array."""
+    return x if isinstance(x, torch.Tensor) else np.asarray(x, np.uint8)
+
+
+def _count_staged(metered, path: str, nbytes: int) -> None:
+    """Add a dispatch's input bytes to seaweedfs_codec_staged_bytes_total
+    under `metered` (backend, op) and `path`."""
+    (_codec_metrics or codec_metrics()).staged.inc(
+        *metered, path, value=float(nbytes))
+
+
+def host_staged(device: torch.device, inputs,
+                metered: "tuple[str, str] | None" = None) -> torch.Tensor:
+    """`inputs` as the host tensor a dispatch on `device` uploads.  A
+    contiguous uint8 CPU tensor (pinned, for a CUDA device), as `staging`
+    gives, is taken as it is: path `direct`.  Anything else is copied into
+    `staging(device)` first on CUDA, and on the CPU handed over as a uint8
+    array: path `copied`.  `metered` (backend, op): the bytes counted in
+    seaweedfs_codec_staged_bytes_total under the path taken; None, not
+    counted."""
+    if isinstance(inputs, torch.Tensor) and inputs.device.type == "cpu" \
+            and inputs.dtype == torch.uint8 and inputs.is_contiguous() \
+            and (device.type != "cuda" or inputs.is_pinned()):
+        staged, path = inputs, "direct"
+    else:
+        x = np.ascontiguousarray(inputs, dtype=np.uint8)
+        if device.type == "cuda":
+            staged = staging(device, x.shape)
+            staged.numpy()[...] = x
+        else:
+            if not x.flags.writeable:  # torch wants writable memory
+                x = x.copy()
+            staged = torch.from_numpy(x)
+        path = "copied"
+    if metered:
+        _count_staged(metered, path, staged.nbytes)
+    return staged
+
+
+def device_call_begin(device: torch.device, stream,
+                      inputs: "np.ndarray | torch.Tensor",
                       fn: Callable[[torch.Tensor], torch.Tensor]
                       ) -> Callable[[], np.ndarray]:
     """Start out = fn(inputs as a tensor on `device`); returns fetch() ->
     numpy.
 
-    On CUDA the host->device copy (from pinned staging), fn's kernels and
-    the device->host copy are queued on `stream` and an event is
-    recorded; only fetch() waits on it.  That is the seam the pipelined
-    disk loops in storage/ec/encoder.py use to overlap disk reads, the
-    device and shard-file writes.  On the CPU fn runs here (its kernels'
-    plain versions) and fetch() returns the result."""
-    inputs = np.ascontiguousarray(inputs, dtype=np.uint8)
+    `inputs` goes through `host_staged` (not metered): a tensor from
+    `staging` is uploaded as it is, an array copied into pinned staging
+    first; a codec entry calls host_staged itself to count the path.  On
+    CUDA the host->device copy, fn's kernels and the device->host copy
+    are queued on `stream` and an event is recorded; only fetch() waits on
+    it.  That is the seam the pipelined disk loops in storage/ec/encoder.py
+    use to overlap disk reads, the device and shard-file writes.  On the
+    CPU fn runs here (its kernels' plain versions) and fetch() returns the
+    result."""
+    staged = host_staged(device, inputs)
     if device.type != "cuda":
-        if not inputs.flags.writeable:  # torch wants writable memory
-            inputs = inputs.copy()
-        out = fn(torch.from_numpy(inputs)).numpy()
+        out = fn(staged).numpy()
         return lambda: out
-    # the staging, the output buffer and the event belong to `device`,
-    # which need not be the thread's current device
+    # the output buffer and the event belong to `device`, which need not
+    # be the thread's current device
     with torch.cuda.device(device):
-        staged = torch.empty(inputs.shape, dtype=torch.uint8,
-                             pin_memory=True)
-        staged.numpy()[...] = inputs
         with torch.cuda.stream(stream):
             dev_out = fn(staged.to(device, non_blocking=True))
             host = torch.empty(dev_out.shape, dtype=torch.uint8,
@@ -336,6 +405,8 @@ def gf_apply(M: np.ndarray, x: np.ndarray, *, device=None,
             t.record_stream(stream)
     b = x.shape[1]
     out = np.empty((mo, b), dtype=np.uint8)
+    if metered:    # each chunk goes up from pageable memory
+        _count_staged(metered, "copied", x.nbytes)
     chunk = max(1, GF_APPLY_CHUNK_BYTES // ki)
     for c0 in range(0, b, chunk):
         # each chunk is one dispatch: its upload and product issued, then
@@ -393,18 +464,19 @@ class RSCodec:
                                      tuple(present), tuple(targets),
                                      self.device)
 
-    def _matmul_begin(self, planes: torch.Tensor, inputs: np.ndarray,
-                      op: str):
+    def _matmul_begin(self, planes: torch.Tensor,
+                      inputs: "np.ndarray | torch.Tensor", op: str):
         """Issue out = M ∘GF∘ inputs[..., KI, B]; returns fetch() -> numpy,
         metered as `op`.  See device_call_begin for the stream and fetch()
-        contract."""
+        contract, and for `inputs` from `staging`."""
         t0 = time.perf_counter()
         if self._stream is not None:
             # the decode-matrix cache may drop `planes` while the stream
             # reads it
             planes.record_stream(self._stream)
         fetch = device_call_begin(
-            self.device, self._stream, inputs,
+            self.device, self._stream,
+            host_staged(self.device, inputs, (self.label, op)),
             lambda x: rs_cuda.gf_matmul_bits_cuda(planes, x))
         volumes = int(np.prod(inputs.shape[:-2])) if inputs.ndim > 2 else 1
         return waited(metered_fetch(fetch, self.label, op, inputs.nbytes, t0,
@@ -415,9 +487,11 @@ class RSCodec:
         """data [.., k, B] uint8 -> parity [.., m, B] uint8."""
         return self.encode_begin(data)()
 
-    def encode_begin(self, data: np.ndarray):
-        """Issue the encode asynchronously; returns fetch() -> parity."""
-        data = np.asarray(data, dtype=np.uint8)
+    def encode_begin(self, data: "np.ndarray | torch.Tensor"):
+        """Issue the encode asynchronously; returns fetch() -> parity.  A
+        tensor from `staging` is uploaded as it is, any other input copied
+        into staging first (`host_staged`)."""
+        data = host_input(data)
         if data.ndim not in (2, 3) or data.shape[-2] != self.k:
             raise ValueError(f"expected [{self.k}, B] or [V, {self.k}, B] "
                              f"data, got {data.shape}")
@@ -464,13 +538,15 @@ class RSCodec:
             return out
         return fetch
 
-    def reconstruct_rows_begin(self, survivors: np.ndarray, used, targets):
+    def reconstruct_rows_begin(self, survivors: "np.ndarray | torch.Tensor",
+                               used, targets):
         """Issue the rebuild of shards `targets` from survivors the caller
         has gathered: `survivors` [k, B] holds the shards `used` (k ids)
         in that row order.  Returns fetch() -> [len(targets), B], the rows
-        of `targets` in that order.  Nothing is stacked: the dispatch
-        copies `survivors` once, into its pinned staging."""
-        survivors = np.asarray(survivors, dtype=np.uint8)
+        of `targets` in that order.  Nothing is stacked: a tensor from
+        `staging` is uploaded as it is, any other input copied once into
+        the dispatch's staging (`host_staged`)."""
+        survivors = host_input(survivors)
         if survivors.ndim != 2 or survivors.shape[0] != self.k \
                 or len(used) != self.k:
             raise ValueError(f"expected [{self.k}, B] survivors of "

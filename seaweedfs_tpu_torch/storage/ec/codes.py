@@ -38,7 +38,8 @@ import torch
 
 from ...ops import clay_matrix, clay_structured, lrc
 from ...ops.codec import (codec_metrics, device_call_begin, gf_apply,
-                          metered_fetch, resolve_device, stage, waited)
+                          host_input, host_staged, metered_fetch,
+                          resolve_device, stage, staging, waited)
 from ...parallel.mesh import Mesh
 from ...parallel.mesh_codec import (clay_mesh_encode_begin,
                                     gf_mesh_encode_begin)
@@ -156,13 +157,16 @@ class ClayWindowCodec:
     def encode(self, data: np.ndarray) -> np.ndarray:
         return self.encode_begin(data)()
 
-    def encode_begin(self, data: np.ndarray, *, volumes: int = 1):
+    def encode_begin(self, data: "np.ndarray | torch.Tensor", *,
+                     volumes: int = 1):
         """Start the encode of data [k, W] (W a multiple of the small
         block) asynchronously; returns fetch() -> parity [m, W].
         `volumes` is how many volumes the bytes span (encode_ec_files_batch
-        folds a group onto the byte axis)."""
+        folds a group onto the byte axis).  A tensor from `staging` is
+        uploaded as it is, any other input copied into staging first
+        (`host_staged`)."""
         t0 = time.perf_counter()
-        data = np.asarray(data, dtype=np.uint8)
+        data = host_input(data)
         small = self.geo.small_block_size
         if data.ndim != 2 or data.shape[0] != self.k \
                 or data.shape[1] % small:
@@ -176,20 +180,25 @@ class ClayWindowCodec:
         with stage("codec_submit", self.label, "encode"):
             self._hold_planes(None)
             fetch = device_call_begin(
-                self.device, self._stream, data,
+                self.device, self._stream,
+                host_staged(self.device, data, (self.label, "encode")),
                 lambda d: clay_structured.encode_device(self.k, self.m, d,
                                                         small=small))
         return waited(metered_fetch(fetch, self.label, "encode", data.nbytes,
                                     t0, volumes=volumes),
                       self.label, "encode")
 
-    def repair(self, lost: int, x4: np.ndarray) -> np.ndarray:
+    def repair(self, lost: int, x4: "np.ndarray | torch.Tensor"
+               ) -> np.ndarray:
         """The lost shard's windows [n_win, alpha, w_a] from the helpers'
-        plane layers x4 [k+m-1, n_win, beta, w_a] (one fused launch)."""
+        plane layers x4 [k+m-1, n_win, beta, w_a] (one fused launch).  A
+        tensor from `staging` is uploaded as it is, any other input copied
+        into staging first (`host_staged`)."""
         with stage("codec_submit", self.label, "reconstruct"):
             self._hold_planes(lost)
             fetch = device_call_begin(
-                self.device, self._stream, x4,
+                self.device, self._stream,
+                host_staged(self.device, x4, (self.label, "reconstruct")),
                 lambda x: clay_structured.repair_device_fused(
                     self.k, self.m, lost, x))
         return waited(fetch, self.label, "reconstruct")()
@@ -266,16 +275,21 @@ def rebuild_clay(base_path: str, geo: EcGeometry, missing: list[int],
         with open(base_path + to_ext(lost), "wb") as out:
             for w0 in range(0, shard_size // small, wins_per_batch):
                 wn = min(wins_per_batch, shard_size // small - w0)
-                # helper-major [H, wn, beta, win_a]: the gather is the
+                # helper-major [H, wn, beta, win_a], gathered straight
+                # into the dispatch's staging: the gather is the
                 # partial-range plane read; the kernel returns the natural
                 # [wn, alpha, win_a] layer-major layout, written verbatim
                 with stage("ec_read", codec.label, "rebuild"):
-                    x4 = np.empty((len(helpers), wn, len(plane), win_a),
-                                  dtype=np.uint8)
+                    x4 = staging(codec.device,
+                                 (len(helpers), wn, len(plane), win_a))
+                    dst = x4.numpy()
                     for hi, h in enumerate(helpers):
                         span = inputs[h][w0 * small:(w0 + wn) * small]
-                        x4[hi] = span.reshape(wn, alpha, win_a)[:, plane_idx]
-                bytes_read += x4.size
+                        # mode="clip": "raise" would gather into a buffer
+                        # and copy it into `out`
+                        np.take(span.reshape(wn, alpha, win_a), plane_idx,
+                                axis=1, out=dst[hi], mode="clip")
+                bytes_read += dst.size
                 rec = codec.repair(lost, x4)
                 with stage("ec_write", codec.label, "rebuild"):
                     out.write(rec.tobytes())

@@ -6,11 +6,12 @@ Capability-equivalent to weed/storage/erasure_coding/ec_encoder.go
 - Each read covers a whole *row batch*: one contiguous [k * block] slice of
   .dat reshapes to the [k, block] stripe matrix, several stripes stack into
   a [k, B] batch, and ONE codec call (the GF(2^8) bit-plane kernel) produces
-  all parity for the batch.  Data shards are pure memory views of the read
-  buffer; only parity costs compute.
+  all parity for the batch.  The batch is gathered straight into the
+  dispatch's host staging (`ops.codec.staging`: pinned on CUDA), which the
+  codec uploads with no further copy; data shards are written from it.
 - Rebuild reads the first k surviving shards' aligned windows into one
-  [k, B] buffer and reconstructs every missing shard in one codec call per
-  window.
+  [k, B] staging buffer and reconstructs every missing shard in one codec
+  call per window.
 - Clay and LRC geometries (`code_kind="clay"` / `"lrc"`) take the window
   codecs and rebuilds of storage/ec/codes.py: the same shard files, other
   parity math.
@@ -33,7 +34,7 @@ from typing import Union
 
 import numpy as np
 
-from ...ops.codec import RSCodec, current_job, job, span, stage
+from ...ops.codec import RSCodec, current_job, job, span, stage, staging
 from ...parallel.mesh_codec import MeshCodec, codec_for_devices
 from ..idx import index_array_to_bytes, parse_index_bytes
 from ..types import TOMBSTONE_FILE_SIZE
@@ -129,51 +130,36 @@ def codec_for(geo: EcGeometry, codec: "Codec | None" = None, *,
     return codec
 
 
-class _BufferPool:
-    """Cycled preallocated [k, batch] gather buffers.
-
-    The pipeline holds at most PIPELINE_DEPTH queued batches plus one in
-    the writer and one being produced, so `PIPELINE_DEPTH + 2` cycled
-    buffers are never overwritten while still in flight."""
-
-    def __init__(self, n: int, shape: tuple):
-        self._bufs = [np.empty(shape, dtype=np.uint8) for _ in range(n)]
-        self._i = 0
-
-    def next(self) -> np.ndarray:
-        buf = self._bufs[self._i]
-        self._i = (self._i + 1) % len(self._bufs)
-        return buf
+def _staging_for(codec: "Codec", shape: tuple):
+    """A batch's host buffer: `staging` on the codec's device, or on a
+    mesh codec's first device (pinned on CUDA), which lays the batch out
+    over the mesh itself."""
+    device = codec.mesh.devices.flat[0] if isinstance(codec, MeshCodec) \
+        else codec.device
+    return staging(device, shape)
 
 
 def _iter_encode_batches(dat, dat_size: int, geo: EcGeometry,
                          batch_bytes: int):
-    """Yield one gather per [k, width] data matrix write_ec_files encodes,
-    in shard append order: a function that copies the matrix out of .dat
-    and returns it.  Large rows first (column slices gathered across the k
-    large blocks), then batched small rows, zero-padding the final partial
-    row exactly like encodeDataOneBatch (ec_encoder.go:173).
-
-    Call each gather once, in order: the arrays they return are views into
-    a cycled buffer pool, each valid until PIPELINE_DEPTH + 1 further
-    batches have been gathered."""
+    """Yield (width, gather) per [k, width] data matrix write_ec_files
+    encodes, in shard append order: gather(out) copies the matrix out of
+    .dat into `out`, a [k, width] array of the caller's (a staging buffer).
+    Large rows first (column slices gathered across the k large blocks),
+    then batched small rows, zero-padding the final partial row exactly
+    like encodeDataOneBatch (ec_encoder.go:173).  Small-row batches are at
+    least one whole block wide even when batch_bytes is smaller."""
     k = geo.data_shards
     large_row = geo.large_row_size()
     small_row = geo.small_row_size()
     block = geo.small_block_size
-    # small-row batches are at least one whole block wide even when
-    # batch_bytes is smaller (n_rows floors at 1)
-    pool = _BufferPool(PIPELINE_DEPTH + 2, (k, max(batch_bytes, block)))
 
-    def gather_large(pos, col, width):
-        data = pool.next()[:, :width]
+    def gather_large(pos, col, data):
+        width = data.shape[1]
         for s in range(k):
             off = pos + s * geo.large_block_size + col
             data[s] = dat[off:off + width]
-        return data
 
-    def gather_small(pos, n_rows):
-        data = pool.next()[:, :n_rows * block]
+    def gather_small(pos, n_rows, data):
         # shard s of row r sits at .dat offset pos + r*small_row + s*block
         for r in range(n_rows):
             row_off = pos + r * small_row
@@ -185,7 +171,6 @@ def _iter_encode_batches(dat, dat_size: int, geo: EcGeometry,
                     dst[:n] = dat[o:o + n]
                 if n < block:
                     dst[n:] = 0    # zero-pad the final partial row
-        return data
 
     pos = 0
     remaining = dat_size
@@ -194,14 +179,14 @@ def _iter_encode_batches(dat, dat_size: int, geo: EcGeometry,
         # slices, gathered into a [k, width] matrix
         for col in range(0, geo.large_block_size, batch_bytes):
             width = min(batch_bytes, geo.large_block_size - col)
-            yield functools.partial(gather_large, pos, col, width)
+            yield width, functools.partial(gather_large, pos, col)
         pos += large_row
         remaining -= large_row
     rows_per_batch = max(1, batch_bytes // block)
     while remaining > 0:
         n_rows = min(rows_per_batch,
                      (remaining + small_row - 1) // small_row)
-        yield functools.partial(gather_small, pos, n_rows)
+        yield n_rows * block, functools.partial(gather_small, pos, n_rows)
         pos += n_rows * small_row
         remaining -= min(remaining, n_rows * small_row)
 
@@ -220,8 +205,10 @@ def write_ec_files(base_path: str, geo: EcGeometry = DEFAULT_GEOMETRY,
 
     Pipelined: the calling thread reads batch N+1 from .dat and submits its
     encode while the device computes batch N and a writer thread appends
-    batch N-1's shards.  The job ec.encode_volume, named by the volume's
-    base name."""
+    batch N-1's shards.  Each batch is gathered into a staging buffer of
+    its own, which the codec uploads as it is and the writer writes the
+    data shards from; the array queued with the batch keeps it alive until
+    then.  The job ec.encode_volume, named by the volume's base name."""
     with job("ec.encode_volume", os.path.basename(base_path)):
         codec = codec_for(geo, codec)
         label = codec.label
@@ -231,11 +218,13 @@ def write_ec_files(base_path: str, geo: EcGeometry = DEFAULT_GEOMETRY,
         k = geo.data_shards
 
         def produce():
-            for gather in _iter_encode_batches(dat, dat_size, geo,
-                                               batch_bytes):
+            for width, gather in _iter_encode_batches(dat, dat_size, geo,
+                                                      batch_bytes):
                 with stage("ec_read", label, "encode"):
-                    data = gather()
-                yield data, codec.encode_begin(data)
+                    staged = _staging_for(codec, (k, width))
+                    data = staged.numpy()
+                    gather(data)
+                yield data, codec.encode_begin(staged)
 
         def consume(item):
             data, fetch = item
@@ -307,23 +296,24 @@ def _encode_group(bases: list[str], geo: EcGeometry,
                                                  fillvalue=sentinel):
                 # misalignment here would interleave volumes' bytes into
                 # the wrong shards, so fail rather than truncate
-                if any(g is sentinel for g in gathers):
+                if any(g is sentinel for g in gathers) \
+                        or len({w for w, _ in gathers}) != 1:
                     raise RuntimeError(
                         "same-shard-size volumes must batch in lockstep")
+                width = gathers[0][0]
+                # every volume's gather lands in its part of one staging
+                # buffer: [V, k, width] (RS), [k, V * width] (clay, LRC)
                 with stage("ec_read", label, "encode"):
-                    parts = [g() for g in gathers]
-                    if len({p.shape[1] for p in parts}) != 1:
-                        raise RuntimeError(
-                            "same-shard-size volumes must batch in lockstep")
-                    # stack/concatenate COPY out of the per-volume cycled
-                    # pools, so the yielded batch stays valid in the
-                    # pipeline
-                    data = np.stack(parts) if rs \
-                        else np.concatenate(parts, axis=1)
+                    staged = _staging_for(
+                        codec, (v, k, width) if rs else (k, v * width))
+                    data = staged.numpy()
+                    for vi, (_, gather) in enumerate(gathers):
+                        gather(data[vi] if rs
+                               else data[:, vi * width:(vi + 1) * width])
                 if rs:     # RSCodec counts the volumes on the leading axis
-                    yield data, codec.encode_begin(data)
+                    yield data, codec.encode_begin(staged)
                 else:
-                    yield data, codec.encode_begin(data, volumes=v)
+                    yield data, codec.encode_begin(staged, volumes=v)
 
         def consume(item):
             data, fetch = item
@@ -391,25 +381,26 @@ def rebuild_ec_files(base_path: str, geo: "EcGeometry | None" = None,
         outputs = {i: open(base_path + to_ext(i), "wb") for i in missing}
         k = geo.data_shards
         used = [i for i in range(n) if have[i]][:k]
-        # one gather buffer serves every window: the codec copies the
-        # survivors (into its staging) before reconstruct_rows_begin returns
-        buf = np.empty(k * min(batch_bytes, shard_size), dtype=np.uint8)
         gathered = 0
 
         def produce():
             nonlocal gathered
             for off in range(0, shard_size, batch_bytes):
                 width = min(batch_bytes, shard_size - off)
-                # the first k survivors' window, read into a contiguous
-                # [k, width] view of the buffer
+                # the first k survivors' window, read into a staging buffer
+                # of its own, which the codec uploads as it is; queued with
+                # the window, it stays valid until the window is written
                 with stage("ec_read", label, "rebuild"):
-                    survivors = buf[:k * width].reshape(k, width)
+                    staged = _staging_for(codec, (k, width))
+                    survivors = staged.numpy()
                     for row, i in enumerate(used):
                         survivors[row] = inputs[i][off:off + width]
                 gathered += survivors.nbytes
-                yield codec.reconstruct_rows_begin(survivors, used, missing)
+                yield staged, codec.reconstruct_rows_begin(staged, used,
+                                                           missing)
 
-        def consume(fetch):
+        def consume(item):
+            _, fetch = item
             rebuilt = fetch()
             with stage("ec_write", label, "rebuild"):
                 for row, i in enumerate(missing):

@@ -36,6 +36,8 @@ STAGE_FAMILIES = ("seaweedfs_ec_read_seconds", "seaweedfs_ec_write_seconds",
                   "seaweedfs_codec_submit_seconds",
                   "seaweedfs_codec_wait_seconds",
                   "seaweedfs_needle_parse_seconds")
+# the port's count of dispatch input bytes by how they reached the upload
+STAGED_FAMILY = "seaweedfs_codec_staged_bytes_total"
 
 
 class Delta:
@@ -81,23 +83,26 @@ def test_render_equals_reference_text(exemplars):
 def test_codec_registry_families_and_label_keys():
     RSCodec(4, 2, device="cpu").encode(np.zeros((4, 64), np.uint8))
     text = codec_mod.codec_metrics().registry.render()
-    for fam in FAMILIES + STAGE_FAMILIES:
+    for fam in FAMILIES + STAGE_FAMILIES + (STAGED_FAMILY,):
         kind = "histogram" if fam.endswith("_seconds") else "counter"
         assert f"# TYPE {fam} {kind}" in text
     samples = [ln for ln in text.splitlines() if not ln.startswith("#")]
     assert samples
     for ln in samples:
         keys = re.findall(r'(\w+)="', ln)
-        assert keys in (["backend", "op"], ["backend", "op", "le"]), ln
+        want = [["backend", "op", "path"]] if ln.startswith(STAGED_FAMILY) \
+            else [["backend", "op"], ["backend", "op", "le"]]
+        assert keys in want, ln
     # the JAX package's four families first, in its order, then exactly
-    # the six stage histograms, in this order
+    # the six stage histograms, in this order, then the staged bytes
     ref_text = ref_codec_mod.codec_metrics().registry.render()
     types = re.findall(r"# TYPE (\S+ \S+)", text)
     ref_types = re.findall(r"# TYPE (\S+ \S+)", ref_text)
     assert len(ref_types) == len(FAMILIES)
     assert types[:len(ref_types)] == ref_types
     assert types[len(ref_types):] == [f"{fam} histogram"
-                                      for fam in STAGE_FAMILIES]
+                                      for fam in STAGE_FAMILIES] + [
+        f"{STAGED_FAMILY} counter"]
 
 
 # -- codec calls ---------------------------------------------------------------
