@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 import threading
 import time
 from typing import Callable
@@ -438,6 +439,8 @@ def _apply_form_cached(m_bytes: bytes, shape: tuple, device: torch.device):
 
 
 class RSCodec:
+    mesh = None    # it runs on `device`; a MeshCodec on its `mesh`
+
     def __init__(self, data_shards: int = rs_matrix.DEFAULT_DATA_SHARDS,
                  parity_shards: int = rs_matrix.DEFAULT_PARITY_SHARDS,
                  *, kind: str = "vandermonde", device=None):
@@ -465,10 +468,12 @@ class RSCodec:
                                      self.device)
 
     def _matmul_begin(self, planes: torch.Tensor,
-                      inputs: "np.ndarray | torch.Tensor", op: str):
+                      inputs: "np.ndarray | torch.Tensor", op: str,
+                      volumes: int = 1):
         """Issue out = M ∘GF∘ inputs[..., KI, B]; returns fetch() -> numpy,
-        metered as `op`.  See device_call_begin for the stream and fetch()
-        contract, and for `inputs` from `staging`."""
+        metered as `op`, each [KI, B] matrix counted as `volumes` volumes.
+        See device_call_begin for the stream and fetch() contract, and for
+        `inputs` from `staging`."""
         t0 = time.perf_counter()
         if self._stream is not None:
             # the decode-matrix cache may drop `planes` while the stream
@@ -478,7 +483,7 @@ class RSCodec:
             self.device, self._stream,
             host_staged(self.device, inputs, (self.label, op)),
             lambda x: rs_cuda.gf_matmul_bits_cuda(planes, x))
-        volumes = int(np.prod(inputs.shape[:-2])) if inputs.ndim > 2 else 1
+        volumes *= math.prod(inputs.shape[:-2])
         return waited(metered_fetch(fetch, self.label, op, inputs.nbytes, t0,
                                     volumes=volumes), self.label, op)
 
@@ -487,8 +492,11 @@ class RSCodec:
         """data [.., k, B] uint8 -> parity [.., m, B] uint8."""
         return self.encode_begin(data)()
 
-    def encode_begin(self, data: "np.ndarray | torch.Tensor"):
-        """Issue the encode asynchronously; returns fetch() -> parity.  A
+    def encode_begin(self, data: "np.ndarray | torch.Tensor", *,
+                     volumes: int = 1):
+        """Issue the encode asynchronously; returns fetch() -> parity.
+        `volumes` is how many volumes a [k, B] input's bytes span (the
+        encode loop folds them onto the byte axis; [V, k, B] counts V).  A
         tensor from `staging` is uploaded as it is, any other input copied
         into staging first (`host_staged`)."""
         data = host_input(data)
@@ -496,7 +504,8 @@ class RSCodec:
             raise ValueError(f"expected [{self.k}, B] or [V, {self.k}, B] "
                              f"data, got {data.shape}")
         with stage("codec_submit", self.label, "encode"):
-            return self._matmul_begin(self.parity_planes, data, "encode")
+            return self._matmul_begin(self.parity_planes, data, "encode",
+                                      volumes)
 
     def reconstruct(self, shards: list[np.ndarray | None], *,
                     data_only: bool = False) -> list[np.ndarray]:
@@ -522,8 +531,8 @@ class RSCodec:
             res = list(shards)
             return lambda: res
         # the stack copies the survivors into the staging layout: the
-        # dispatch's host part (rebuild_ec_files gathers them itself and
-        # calls reconstruct_rows_begin)
+        # dispatch's host part (the RS rebuild loop gathers them itself
+        # and calls reconstruct_rows_begin)
         with stage("codec_submit", self.label, "reconstruct"):
             planes = self.decode_planes(tuple(present), tuple(targets))
             chosen = np.stack([np.asarray(shards[i], dtype=np.uint8)
@@ -539,13 +548,14 @@ class RSCodec:
         return fetch
 
     def reconstruct_rows_begin(self, survivors: "np.ndarray | torch.Tensor",
-                               used, targets):
+                               used, targets, *, volumes: int = 1):
         """Issue the rebuild of shards `targets` from survivors the caller
         has gathered: `survivors` [k, B] holds the shards `used` (k ids)
-        in that row order.  Returns fetch() -> [len(targets), B], the rows
-        of `targets` in that order.  Nothing is stacked: a tensor from
-        `staging` is uploaded as it is, any other input copied once into
-        the dispatch's staging (`host_staged`)."""
+        in that row order, its bytes spanning `volumes` volumes.  Returns
+        fetch() -> [len(targets), B], the rows of `targets` in that order.
+        Nothing is stacked: a tensor from `staging` is uploaded as it is,
+        any other input copied once into the dispatch's staging
+        (`host_staged`)."""
         survivors = host_input(survivors)
         if survivors.ndim != 2 or survivors.shape[0] != self.k \
                 or len(used) != self.k:
@@ -554,7 +564,8 @@ class RSCodec:
                              f"{len(used)}")
         with stage("codec_submit", self.label, "reconstruct"):
             planes = self.decode_planes(tuple(used), tuple(targets))
-            return self._matmul_begin(planes, survivors, "reconstruct")
+            return self._matmul_begin(planes, survivors, "reconstruct",
+                                      volumes)
 
     def verify(self, shards: list[np.ndarray]) -> bool:
         """Check parity consistency (reference enc.Verify)."""

@@ -32,6 +32,7 @@ not yet run on two real GPUs nor beaten RSCodec end to end (ROADMAP).
 from __future__ import annotations
 
 import functools
+import math
 import time
 
 import numpy as np
@@ -78,6 +79,8 @@ class MeshCodec:
                  parity_shards: int = rs_matrix.DEFAULT_PARITY_SHARDS,
                  *, kind: str = "vandermonde", mesh: "Mesh | None" = None):
         self.mesh = mesh if mesh is not None else default_ec_mesh()
+        # the device of its host staging, as a window codec's on a mesh
+        self.device = self.mesh.devices.flat[0]
         if self.mesh.axis_names != ("s", "b"):
             raise ValueError(f"MeshCodec needs an (s, b) mesh "
                              f"(default_ec_mesh), got {self.mesh}")
@@ -116,9 +119,10 @@ class MeshCodec:
         """data [k, B] or [V, k, B] uint8 -> parity [.., m, B] uint8."""
         return self.encode_begin(data)()
 
-    def encode_begin(self, data: np.ndarray):
+    def encode_begin(self, data: np.ndarray, *, volumes: int = 1):
         """Issue the mesh encode asynchronously; returns fetch() -> parity,
-        as RSCodec.encode_begin (the seam the pipelined disk paths use)."""
+        as RSCodec.encode_begin (the seam the pipelined disk paths use),
+        `volumes` counted as there."""
         t0 = time.perf_counter()
         data = np.asarray(data, dtype=np.uint8)
         if data.ndim not in (2, 3) or data.shape[-2] != self.k:
@@ -127,9 +131,8 @@ class MeshCodec:
         fetch = sharded_codec.mesh_matmul_begin(
             self.mesh, self.parity_pm, self.m, data,
             (None,) * (data.ndim - 1) + (self.mesh.axis_names,))
-        volumes = data.shape[0] if data.ndim == 3 else 1
         return metered_fetch(fetch, self.label, "encode", data.nbytes, t0,
-                             volumes=volumes)
+                             volumes=volumes * math.prod(data.shape[:-2]))
 
     def reconstruct(self, shards: list, *,
                     data_only: bool = False) -> list:
@@ -172,10 +175,12 @@ class MeshCodec:
         return metered_fetch(fetch, self.label, "reconstruct", chosen.nbytes,
                              t0, volumes=volumes)
 
-    def reconstruct_rows_begin(self, survivors: np.ndarray, used, targets):
+    def reconstruct_rows_begin(self, survivors: np.ndarray, used, targets,
+                               *, volumes: int = 1):
         """RSCodec.reconstruct_rows_begin on the mesh: `survivors` [k, B]
-        holds the shards `used` in that row order; only `targets` are
-        rebuilt.  Returns fetch() -> [len(targets), B]."""
+        holds the shards `used` in that row order, its bytes spanning
+        `volumes` volumes; only `targets` are rebuilt.  Returns fetch() ->
+        [len(targets), B]."""
         t0 = time.perf_counter()
         survivors = np.asarray(survivors, dtype=np.uint8)
         if survivors.ndim != 2 or survivors.shape[0] != self.k \
@@ -186,7 +191,8 @@ class MeshCodec:
         pending = self._reconstruct_issue(list(used), list(targets),
                                           survivors)
         return metered_fetch(lambda: np.stack(pending()), self.label,
-                             "reconstruct", survivors.nbytes, t0)
+                             "reconstruct", survivors.nbytes, t0,
+                             volumes=volumes)
 
     def _reconstruct_issue(self, present: list, targets: list,
                            flat: np.ndarray):

@@ -35,7 +35,6 @@ import sys
 import types
 
 from .ops import codec as ops_codec
-from .parallel.mesh import Mesh
 from .storage import ec
 from .storage.ec import (codes, decoder, ec_volume, encoder, layout,
                          shard_bits)
@@ -71,9 +70,8 @@ def bind(device) -> types.ModuleType:
     reads stay on one device); everything else is this package's
     `storage.ec` as it is.  The submodules are attributes: `ec_volume` and
     `encoder` bound the same way, the others plain."""
-    dev = device if isinstance(device, Mesh) \
-        else ops_codec.resolve_device(device)
-    one = dev.devices.flat[0] if isinstance(dev, Mesh) else dev
+    mesh, one = codes.placement(device)
+    dev = mesh or one
 
     # the entry's job opens here, where its codec is built, so that it
     # holds the build (the storage calls' own jobs open only for

@@ -66,9 +66,9 @@ def window_codec_for(geo: EcGeometry, *, device=None):
 
 
 def placement(device) -> tuple:
-    """(mesh, device) of a window codec.  A `Mesh` encodes on the mesh and
-    rebuilds on its first position; any other device is the one device
-    (None: CUDA)."""
+    """(mesh, device) of a window codec or of serving.bind.  A `Mesh`
+    encodes on the mesh and rebuilds on its first position; any other
+    device is the one device (None: CUDA)."""
     if isinstance(device, Mesh):
         return device, device.devices.flat[0]
     return None, resolve_device(device)

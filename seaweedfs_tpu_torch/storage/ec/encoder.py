@@ -12,6 +12,9 @@ Capability-equivalent to weed/storage/erasure_coding/ec_encoder.go
 - Rebuild reads the first k surviving shards' aligned windows into one
   [k, B] staging buffer and reconstructs every missing shard in one codec
   call per window.
+- One loop per operation serves V >= 1 volumes side by side on the byte
+  axis of one [k, V * B] buffer: the fleet forms' groups, and the
+  single-volume entries with V = 1.
 - Clay and LRC geometries (`code_kind="clay"` / `"lrc"`) take the window
   codecs and rebuilds of storage/ec/codes.py: the same shard files, other
   parity math.
@@ -130,15 +133,6 @@ def codec_for(geo: EcGeometry, codec: "Codec | None" = None, *,
     return codec
 
 
-def _staging_for(codec: "Codec", shape: tuple):
-    """A batch's host buffer: `staging` on the codec's device, or on a
-    mesh codec's first device (pinned on CUDA), which lays the batch out
-    over the mesh itself."""
-    device = codec.mesh.devices.flat[0] if isinstance(codec, MeshCodec) \
-        else codec.device
-    return staging(device, shape)
-
-
 def _iter_encode_batches(dat, dat_size: int, geo: EcGeometry,
                          batch_bytes: int):
     """Yield (width, gather) per [k, width] data matrix write_ec_files
@@ -201,47 +195,9 @@ def _open_dat(base: str) -> tuple[np.ndarray, int]:
 def write_ec_files(base_path: str, geo: EcGeometry = DEFAULT_GEOMETRY,
                    codec: "Codec | None" = None,
                    batch_bytes: int = DEFAULT_BATCH_BYTES) -> None:
-    """<base>.dat -> <base>.ec00 .. (WriteEcFiles ec_encoder.go:57).
-
-    Pipelined: the calling thread reads batch N+1 from .dat and submits its
-    encode while the device computes batch N and a writer thread appends
-    batch N-1's shards.  Each batch is gathered into a staging buffer of
-    its own, which the codec uploads as it is and the writer writes the
-    data shards from; the array queued with the batch keeps it alive until
-    then.  The job ec.encode_volume, named by the volume's base name."""
-    with job("ec.encode_volume", os.path.basename(base_path)):
-        codec = codec_for(geo, codec)
-        label = codec.label
-        dat, dat_size = _open_dat(base_path)
-        outputs = [open(base_path + to_ext(i), "wb")
-                   for i in range(geo.total_shards)]
-        k = geo.data_shards
-
-        def produce():
-            for width, gather in _iter_encode_batches(dat, dat_size, geo,
-                                                      batch_bytes):
-                with stage("ec_read", label, "encode"):
-                    staged = _staging_for(codec, (k, width))
-                    data = staged.numpy()
-                    gather(data)
-                yield data, codec.encode_begin(staged)
-
-        def consume(item):
-            data, fetch = item
-            # one write stage per batch; the wait for the parity, between
-            # the data and the parity writes, is a stage of its own
-            with stage("ec_write", label, "encode"):
-                for s in range(k):
-                    outputs[s].write(data[s])
-                parity = fetch()
-                for p in range(geo.parity_shards):
-                    outputs[k + p].write(parity[p])
-
-        try:
-            _pipelined(produce(), consume, label, "encode")
-        finally:
-            for f in outputs:
-                f.close()
+    """<base>.dat -> <base>.ec00 .. (WriteEcFiles ec_encoder.go:57): the
+    encode loop `_encode_volumes` with one volume."""
+    _encode_volumes([base_path], geo, codec, batch_bytes)
 
 
 def encode_ec_files_batch(base_paths: list[str],
@@ -252,40 +208,45 @@ def encode_ec_files_batch(base_paths: list[str],
     batched codec dispatches.
 
     Volumes that share a shard-file size (ergo the same batch width
-    sequence) share every window's codec call: RS stacks them into
-    [V, k, width], clay folds them onto the byte axis [k, V*width] (its
-    transform is window-local, so concatenated volumes encode independently
-    and bit-identically).  Odd-sized volumes take the per-volume path.
-    Shard bytes are identical to write_ec_files."""
+    sequence) share every window's codec call (`_encode_volumes`); a
+    volume of a size of its own is a group of one.  Shard bytes are
+    identical to write_ec_files."""
     groups: dict[int, list[str]] = {}
     for base in base_paths:
         dat_size = os.path.getsize(base + ".dat")
         groups.setdefault(geo.shard_file_size(dat_size), []).append(base)
     for _, bases in sorted(groups.items()):
-        if len(bases) == 1:
-            write_ec_files(bases[0], geo, codec, batch_bytes)
-            continue
-        _encode_group(bases, geo, codec, batch_bytes)
+        _encode_volumes(bases, geo, codec, batch_bytes)
 
 
-def _encode_group(bases: list[str], geo: EcGeometry,
-                  codec: "Codec | None", batch_bytes: int) -> None:
-    """One same-shard-size group of encode_ec_files_batch: V volumes'
-    batch iterators advance in lockstep (equal shard size => provably
-    equal width sequences) and every window is one grouped dispatch.  The
-    job ec.encode_volume, named by the volumes' base names."""
-    with job("ec.encode_volume", ",".join(map(os.path.basename, bases))):
+def _encode_volumes(bases: list[str], geo: EcGeometry,
+                    codec: "Codec | None", batch_bytes: int) -> None:
+    """The encode loop of V >= 1 volumes of one shard-file size.
+
+    Their batch iterators advance in lockstep (equal shard size =>
+    provably equal width sequences), and each window of them is gathered
+    into its own [k, V * width] staging buffer, the volumes side by side
+    on the byte axis, which every code kind encodes column by column: one
+    dispatch a window, bit-identical to encoding each volume alone.
+    Pipelined: the calling thread gathers window N+1 and submits its
+    encode while the device computes window N and a writer thread appends
+    window N-1's shards, the data shards from the buffer, which the array
+    queued with the window keeps alive until then.  The job
+    ec.encode_volume, named by the volumes' base names."""
+    with job("ec.encode_volume", ",".join(map(os.path.basename, bases))), \
+            contextlib.ExitStack() as files:
         codec = codec_for(geo, codec)
         label = codec.label
         k, m, v = geo.data_shards, geo.parity_shards, len(bases)
         small = geo.small_block_size
-        # per-volume batch width shrinks with group size so the grouped
-        # dispatch stays near batch_bytes of host copies total; floored to
-        # one small block (width sequences must stay block-aligned)
-        vol_batch = max(small, batch_bytes // v // small * small)
-        rs = geo.code_kind == "rs"
+        # one volume takes batch_bytes per window; a group shares them, so
+        # that a dispatch stays near batch_bytes of host copies, each
+        # volume's width floored to whole small blocks (the width
+        # sequences must stay block-aligned) and to one block
+        vol_batch = batch_bytes if v == 1 \
+            else max(small, batch_bytes // v // small * small)
         dats = [_open_dat(b) for b in bases]
-        outputs = [[open(b + to_ext(i), "wb")
+        outputs = [[files.enter_context(open(b + to_ext(i), "wb"))
                     for i in range(geo.total_shards)] for b in bases]
         sentinel = object()
 
@@ -301,42 +262,27 @@ def _encode_group(bases: list[str], geo: EcGeometry,
                     raise RuntimeError(
                         "same-shard-size volumes must batch in lockstep")
                 width = gathers[0][0]
-                # every volume's gather lands in its part of one staging
-                # buffer: [V, k, width] (RS), [k, V * width] (clay, LRC)
                 with stage("ec_read", label, "encode"):
-                    staged = _staging_for(
-                        codec, (v, k, width) if rs else (k, v * width))
-                    data = staged.numpy()
+                    staged = staging(codec.device, (k, v * width))
+                    data = staged.numpy().reshape(k, v, width)
                     for vi, (_, gather) in enumerate(gathers):
-                        gather(data[vi] if rs
-                               else data[:, vi * width:(vi + 1) * width])
-                if rs:     # RSCodec counts the volumes on the leading axis
-                    yield data, codec.encode_begin(staged)
-                else:
-                    yield data, codec.encode_begin(staged, volumes=v)
+                        gather(data[:, vi])
+                yield data, codec.encode_begin(staged, volumes=v)
 
         def consume(item):
             data, fetch = item
-            width = data.shape[-1] if rs else data.shape[-1] // v
+            # one write stage per window; the wait for the parity, between
+            # the data and the parity writes, is a stage of its own
             with stage("ec_write", label, "encode"):
-                for vi in range(v):
-                    dpart = data[vi] if rs \
-                        else data[:, vi * width:(vi + 1) * width]
+                for vi, shards in enumerate(outputs):
                     for s in range(k):
-                        outputs[vi][s].write(dpart[s])
-                parity = fetch()
-                for vi in range(v):
-                    ppart = parity[vi] if rs \
-                        else parity[:, vi * width:(vi + 1) * width]
+                        shards[s].write(data[s, vi])
+                parity = fetch().reshape(m, v, -1)
+                for vi, shards in enumerate(outputs):
                     for p in range(m):
-                        outputs[vi][k + p].write(ppart[p])
+                        shards[k + p].write(parity[p, vi])
 
-        try:
-            _pipelined(produce(), consume, label, "encode")
-        finally:
-            for files in outputs:
-                for f in files:
-                    f.close()
+        _pipelined(produce(), consume, label, "encode")
 
 
 def rebuild_ec_files(base_path: str, geo: "EcGeometry | None" = None,
@@ -348,9 +294,10 @@ def rebuild_ec_files(base_path: str, geo: "EcGeometry | None" = None,
 
     `stats`, when given, is filled with the rebuild's read accounting
     ({"bytes_read", "plan_kind", ...}): how the clay and LRC repair-IO
-    advantages are measured.  Clay and LRC volumes take codes.rebuild_clay
-    and codes.rebuild_lrc.  The job ec.rebuild, named by the volume's base
-    name."""
+    advantages are measured.  RS volumes take the RS rebuild loop
+    `_rebuild_rs_volumes` with one volume, clay and LRC volumes
+    codes.rebuild_clay and codes.rebuild_lrc.  The job ec.rebuild, named
+    by the volume's base name."""
     with job("ec.rebuild", os.path.basename(base_path)):
         if geo is None:
             from . import geometry_from_vif
@@ -370,52 +317,74 @@ def rebuild_ec_files(base_path: str, geo: "EcGeometry | None" = None,
         if geo.code_kind == "lrc":
             return rebuild_lrc(base_path, geo, missing, batch_bytes, codec,
                                stats=stats)
-        label = codec.label
-        inputs = {i: np.memmap(base_path + to_ext(i), dtype=np.uint8,
-                               mode="r") for i in range(n) if have[i]}
-        shard_size = len(next(iter(inputs.values())))
-        for i, arr in inputs.items():
+        return _rebuild_rs_volumes([base_path], geo, have, codec,
+                                   batch_bytes, stats)
+
+
+def _rebuild_rs_volumes(bases: list[str], geo: EcGeometry, have, codec,
+                        batch_bytes: int,
+                        stats: "dict | None" = None) -> list[int]:
+    """The RS rebuild loop of V >= 1 volumes that share the geometry, the
+    loss mask `have` (one bool per shard) and the shard size.  Returns
+    the rebuilt shard ids.
+
+    Per window, each volume's first k survivors (the ids `used`, the same
+    for every volume) are gathered into its columns of one [k, V * width]
+    staging buffer, which the codec uploads as it is; ONE dispatch
+    rebuilds the missing rows of every volume, and a writer thread
+    appends each volume's columns of them to its files.  Queued with the
+    window, the buffer stays valid until the window is written.  `stats`,
+    when given, gets the bytes gathered ("bytes_read"), "plan_kind" and
+    the ids read ("read_shards")."""
+    label = codec.label
+    n, k, v = geo.total_shards, geo.data_shards, len(bases)
+    missing = [i for i in range(n) if not have[i]]
+    used = [i for i in range(n) if have[i]][:k]
+    inputs = [{i: np.memmap(b + to_ext(i), dtype=np.uint8, mode="r")
+               for i in range(n) if have[i]} for b in bases]
+    shard_size = len(inputs[0][used[0]])
+    for b, shards in zip(bases, inputs):
+        for i, arr in shards.items():
             if len(arr) != shard_size:
                 raise ValueError(
-                    f"shard {i} size {len(arr)} != {shard_size}")
-        outputs = {i: open(base_path + to_ext(i), "wb") for i in missing}
-        k = geo.data_shards
-        used = [i for i in range(n) if have[i]][:k]
-        gathered = 0
+                    f"{b} shard {i}: size {len(arr)} != {shard_size}")
+    # one volume takes batch_bytes per window; a group shares them, so
+    # that a dispatch stays near k * batch_bytes of host copies, each
+    # volume's width floored to 4 KB, which only bounds the syscall count
+    window = batch_bytes if v == 1 else max(4096, batch_bytes // v)
+    gathered = 0
 
-        def produce():
-            nonlocal gathered
-            for off in range(0, shard_size, batch_bytes):
-                width = min(batch_bytes, shard_size - off)
-                # the first k survivors' window, read into a staging buffer
-                # of its own, which the codec uploads as it is; queued with
-                # the window, it stays valid until the window is written
-                with stage("ec_read", label, "rebuild"):
-                    staged = _staging_for(codec, (k, width))
-                    survivors = staged.numpy()
+    def produce():
+        nonlocal gathered
+        for off in range(0, shard_size, window):
+            width = min(window, shard_size - off)
+            with stage("ec_read", label, "rebuild"):
+                staged = staging(codec.device, (k, v * width))
+                cols = staged.numpy().reshape(k, v, width)
+                for vi, shards in enumerate(inputs):
                     for row, i in enumerate(used):
-                        survivors[row] = inputs[i][off:off + width]
-                gathered += survivors.nbytes
-                yield staged, codec.reconstruct_rows_begin(staged, used,
-                                                           missing)
+                        cols[row, vi] = shards[i][off:off + width]
+            gathered += staged.nbytes
+            yield staged, codec.reconstruct_rows_begin(staged, used, missing,
+                                                       volumes=v)
 
-        def consume(item):
-            _, fetch = item
-            rebuilt = fetch()
-            with stage("ec_write", label, "rebuild"):
+    def consume(item):
+        _, fetch = item
+        rebuilt = fetch().reshape(len(missing), v, -1)
+        with stage("ec_write", label, "rebuild"):
+            for vi, shards in enumerate(outputs):
                 for row, i in enumerate(missing):
-                    outputs[i].write(rebuilt[row])
+                    shards[i].write(rebuilt[row, vi])
 
-        try:
-            _pipelined(produce(), consume, label, "rebuild")
-        finally:
-            for f in outputs.values():
-                f.close()
-        if stats is not None:
-            stats["bytes_read"] = gathered
-            stats["plan_kind"] = "rs-full"
-            stats["read_shards"] = used
-        return missing
+    with contextlib.ExitStack() as files:
+        outputs = [{i: files.enter_context(open(b + to_ext(i), "wb"))
+                    for i in missing} for b in bases]
+        _pipelined(produce(), consume, label, "rebuild")
+    if stats is not None:
+        stats["bytes_read"] = gathered
+        stats["plan_kind"] = "rs-full"
+        stats["read_shards"] = used
+    return missing
 
 
 def rebuild_ec_files_batch(base_paths: list[str],
@@ -423,15 +392,15 @@ def rebuild_ec_files_batch(base_paths: list[str],
                            codec: "Codec | None" = None
                            ) -> dict[str, list[int]]:
     """Fleet rebuild: regenerate missing shards across MANY volumes with
-    batched [V, B] codec calls.
+    batched codec calls.
 
-    RS volumes sharing (geometry, loss mask, shard size) stack onto the
-    codec's leading batch axis and every window is ONE device round for the
-    whole group.  Odd-one-out volumes take the single path, and clay and
-    LRC volumes rebuild one by one (their reduced-IO repairs in codes.py).
-    The caller's `codec` serves the RS volumes; the other kinds get codecs
-    of their own on its mesh or device (the default without one).
-    Returns {base_path: rebuilt shard ids}."""
+    RS volumes sharing (geometry, loss mask, shard size) go through the RS
+    rebuild loop together (`_rebuild_rs_volumes`): every window is ONE
+    device round for the whole group, and a volume of its own is a group
+    of one.  Clay and LRC volumes rebuild one by one (their reduced-IO
+    repairs in codes.py).  The caller's `codec` serves the RS volumes; the
+    other kinds get codecs of their own on its mesh or device (the default
+    without one).  Returns {base_path: rebuilt shard ids}."""
     from . import geometry_from_vif
     groups: dict[tuple, list[str]] = {}
     for base in base_paths:
@@ -449,57 +418,17 @@ def rebuild_ec_files_batch(base_paths: list[str],
         groups.setdefault((geo, have, size), []).append(base)
 
     out: dict[str, list[int]] = {b: [] for b in base_paths}
-    device = None if codec is None \
-        else getattr(codec, "mesh", None) or codec.device
-    for (geo, have, shard_size), bases in groups.items():
-        if len(bases) == 1 or geo.code_kind != "rs":
-            kind_codec = codec if geo.code_kind == "rs" \
-                else codec_for(geo, device=device)
+    device = None if codec is None else codec.mesh or codec.device
+    for (geo, have, _), bases in groups.items():
+        if geo.code_kind != "rs":
+            kind_codec = codec_for(geo, device=device)
             for b in bases:
                 out[b] = rebuild_ec_files(b, geo, codec=kind_codec,
                                           batch_bytes=batch_bytes)
             continue
-        n = geo.total_shards
-        missing = [i for i in range(n) if not have[i]]
-        group_codec = codec_for(geo, codec)
-        label = group_codec.label
-        inputs = {b: {i: np.memmap(b + to_ext(i), dtype=np.uint8, mode="r")
-                      for i in range(n) if have[i]} for b in bases}
-        for b in bases:
-            for i, arr in inputs[b].items():
-                if len(arr) != shard_size:
-                    raise ValueError(
-                        f"{b} shard {i}: size {len(arr)} != {shard_size}")
-        outputs = {b: {i: open(b + to_ext(i), "wb") for i in missing}
-                   for b in bases}
-        # keep the stacked group near n_have * batch_bytes of host copies
-        # regardless of group size; the 4KB floor only bounds syscall count
-        window = max(4096, batch_bytes // max(1, len(bases)))
-
-        def produce():
-            for off in range(0, shard_size, window):
-                width = min(window, shard_size - off)
-                with stage("ec_read", label, "rebuild"):
-                    shards: list[np.ndarray | None] = [
-                        np.stack([np.asarray(inputs[b][i][off:off + width])
-                                  for b in bases]) if have[i] else None
-                        for i in range(n)]
-                yield group_codec.reconstruct_begin(shards)
-
-        def consume(fetch):
-            rebuilt = fetch()  # missing -> [V, width]
-            with stage("ec_write", label, "rebuild"):
-                for i in missing:
-                    for vi, b in enumerate(bases):
-                        outputs[b][i].write(rebuilt[i][vi])
-
-        try:
-            with job("ec.rebuild", ",".join(map(os.path.basename, bases))):
-                _pipelined(produce(), consume, label, "rebuild")
-        finally:
-            for b in bases:
-                for f in outputs[b].values():
-                    f.close()
+        with job("ec.rebuild", ",".join(map(os.path.basename, bases))):
+            missing = _rebuild_rs_volumes(bases, geo, have,
+                                          codec_for(geo, codec), batch_bytes)
         for b in bases:
             out[b] = list(missing)
     return out

@@ -181,7 +181,8 @@ def test_codec_reconstruct_matches_reference(codec, ref_codecs, n_lost,
 
 
 def test_codec_batched_reconstruct_matches_reference(codec, ref_codecs):
-    """[V, B] shards: the fleet-rebuild form."""
+    """[V, B] shards: the list form with a leading volume axis, as the
+    JAX package's fleet rebuild calls it."""
     data = np.random.default_rng(3).integers(0, 256, (4, 10, 333),
                                              dtype=np.uint8)
     parity = codec.encode(data)

@@ -118,36 +118,55 @@ def test_rebuild_byte_identical(twin_volumes, codec, ref_codec, lost):
         assert got == want[s] == _read(ref_base + ec.to_ext(s)), s
 
 
-@pytest.mark.parametrize("lost", [[3], [1, 4, 8, 12]])
+@pytest.mark.parametrize("lost,volumes", [([3], 1), ([1, 4, 8, 12], 1),
+                                          ([1, 4, 8, 12], 3)],
+                         ids=["lost0", "lost1", "fleet"])
 def test_rebuild_counts_the_bytes_it_gathers(twin_volumes, codec,
-                                             ref_codec, lost, monkeypatch):
+                                             ref_codec, lost, volumes,
+                                             monkeypatch):
     """An RS rebuild's `bytes_read` is the sum of the survivors' windows
     handed to the codec, which is k whole shards, as the JAX package's
-    rebuild reports."""
+    rebuild reports.  A fleet rebuild of same-size volumes hands the codec
+    k whole shards of each volume and no more."""
     ref_dir, port_dir, _ = twin_volumes
-    base = os.path.join(port_dir, "7")
+    bases = [os.path.join(port_dir, "7")]
+    for v in range(1, volumes):
+        bases.append(os.path.join(shutil.copytree(port_dir,
+                                                  f"{port_dir}{v}"), "7"))
     ref_base = os.path.join(ref_dir, "7")
-    ec.encode_volume_to_ec(base, 3, GEO, codec)
+    for base in bases:
+        ec.encode_volume_to_ec(base, 3, GEO, codec)
     ref_ec.encode_volume_to_ec(ref_base, 3, REF_GEO, ref_codec)
-    shard = os.path.getsize(base + ec.to_ext(0))
+    shard = os.path.getsize(ref_base + ec.to_ext(0))
     for s in lost:
-        os.remove(base + ec.to_ext(s))
-        os.remove(ref_base + ec.to_ext(s))
+        for base in bases + [ref_base]:
+            os.remove(base + ec.to_ext(s))
     handed = []
     real = codec.reconstruct_rows_begin
 
-    def spy(survivors, used, targets):
+    def spy(survivors, used, targets, **kw):
         handed.append(survivors.nbytes)
-        return real(survivors, used, targets)
+        return real(survivors, used, targets, **kw)
 
     monkeypatch.setattr(codec, "reconstruct_rows_begin", spy)
     stats, ref_stats = {}, {}
-    ec.rebuild_ec_files(base, codec=codec, batch_bytes=4096, stats=stats)
+    if volumes == 1:
+        ec.rebuild_ec_files(bases[0], codec=codec, batch_bytes=4096,
+                            stats=stats)
+        assert stats["bytes_read"] == sum(handed)
+    else:
+        assert ec.rebuild_ec_files_batch(bases, batch_bytes=4096,
+                                         codec=codec) \
+            == dict.fromkeys(bases, lost)
     ref_ec.rebuild_ec_files(ref_base, codec=ref_codec, batch_bytes=4096,
                             stats=ref_stats)
     assert len(handed) == -(-shard // 4096)
-    assert stats["bytes_read"] == sum(handed) == 10 * shard \
-        == ref_stats["bytes_read"]
+    assert sum(handed) == volumes * 10 * shard \
+        == volumes * ref_stats["bytes_read"]
+    for base in bases:
+        for s in lost:
+            assert _read(base + ec.to_ext(s)) == \
+                _read(ref_base + ec.to_ext(s)), (base, s)
 
 
 def test_rebuild_noop_and_too_many_lost(twin_volumes, codec):
@@ -174,8 +193,8 @@ def _raw_volumes(directory, sizes, seed):
 
 def test_fleet_encode_and_rebuild_batch(tmp_path, codec, ref_codec):
     """encode_ec_files_batch / rebuild_ec_files_batch: three same-size
-    volumes share grouped [V, k, width] dispatches, one odd-sized volume
-    takes the single path; shards equal the JAX package's."""
+    volumes share grouped [k, V * width] dispatches, one odd-sized volume
+    is a group of its own; shards equal the JAX package's."""
     sizes = [GEO.large_row_size() + 25 * GEO.small_row_size() + 700] * 3 \
         + [GEO.small_row_size()]
     ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"

@@ -74,9 +74,8 @@ def test_mesh_batches_are_pinned_on_the_card(dev):
     first device, resident across jobs like a single device's."""
     from seaweedfs_tpu_torch.parallel.mesh_codec import (MeshCodec,
                                                          default_ec_mesh)
-    from seaweedfs_tpu_torch.storage.ec import encoder
     codec = MeshCodec(mesh=default_ec_mesh([dev] * 4))
-    assert encoder._staging_for(codec, (10, 4096)).is_pinned()
+    assert codec_mod.staging(codec.device, (10, 4096)).is_pinned()
 
 
 def test_encode_and_rebuild_upload_only_staged_bytes(dev, tmp_path):
