@@ -345,10 +345,10 @@ def device_call_begin(device: torch.device, stream,
     first; a codec entry calls host_staged itself to count the path.  On
     CUDA the host->device copy, fn's kernels and the device->host copy
     are queued on `stream` and an event is recorded; only fetch() waits on
-    it.  That is the seam the pipelined disk loops in storage/ec/encoder.py
-    use to overlap disk reads, the device and shard-file writes.  On the
-    CPU fn runs here (its kernels' plain versions) and fetch() returns the
-    result."""
+    it.  That is the seam the pipelined disk loops of storage/ec
+    (`pipeline._pipelined`) use to overlap disk reads, the device and
+    shard-file writes.  On the CPU fn runs here (its kernels' plain
+    versions) and fetch() returns the result."""
     staged = host_staged(device, inputs)
     if device.type != "cuda":
         out = fn(staged).numpy()

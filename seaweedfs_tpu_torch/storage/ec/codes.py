@@ -44,6 +44,7 @@ from ...parallel.mesh import Mesh
 from ...parallel.mesh_codec import (clay_mesh_encode_begin,
                                     gf_mesh_encode_begin)
 from .layout import EcGeometry, to_ext
+from .pipeline import _pipelined
 
 CODE_KINDS = ("rs", "clay", "lrc")
 
@@ -191,9 +192,14 @@ class ClayWindowCodec:
     def repair(self, lost: int, x4: "np.ndarray | torch.Tensor"
                ) -> np.ndarray:
         """The lost shard's windows [n_win, alpha, w_a] from the helpers'
-        plane layers x4 [k+m-1, n_win, beta, w_a] (one fused launch).  A
-        tensor from `staging` is uploaded as it is, any other input copied
-        into staging first (`host_staged`)."""
+        plane layers x4 [k+m-1, n_win, beta, w_a] (one fused launch)."""
+        return self.repair_begin(lost, x4)()
+
+    def repair_begin(self, lost: int, x4: "np.ndarray | torch.Tensor"):
+        """Start `repair` asynchronously; returns fetch() -> the lost
+        shard's windows [n_win, alpha, w_a].  A tensor from `staging` is
+        uploaded as it is, any other input copied into staging first
+        (`host_staged`); the caller keeps x4 unchanged until fetch()."""
         with stage("codec_submit", self.label, "reconstruct"):
             self._hold_planes(lost)
             fetch = device_call_begin(
@@ -201,7 +207,7 @@ class ClayWindowCodec:
                 host_staged(self.device, x4, (self.label, "reconstruct")),
                 lambda x: clay_structured.repair_device_fused(
                     self.k, self.m, lost, x))
-        return waited(fetch, self.label, "reconstruct")()
+        return waited(fetch, self.label, "reconstruct")
 
 
 # -- rebuild ---------------------------------------------------------------
@@ -251,8 +257,10 @@ def rebuild_clay(base_path: str, geo: EcGeometry, missing: list[int],
                  stats: "dict | None" = None) -> list[int]:
     """Clay rebuild.  One loss: bandwidth-optimal repair reading only the
     beta plane layers of every helper window (beta/alpha = 1/q of each
-    helper's bytes) into the fused repair kernel.  Multi-loss: flat decode
-    from k full survivors through gf_apply."""
+    helper's bytes) into the fused repair kernel, pipelined as the RS
+    rebuild is (`_pipelined`): the next batch's gather and dispatch while
+    a writer thread waits for a batch's windows and appends them.
+    Multi-loss: flat decode from k full survivors through gf_apply."""
     t0 = time.perf_counter()
     k, m = geo.data_shards, geo.parity_shards
     n = geo.total_shards
@@ -272,13 +280,18 @@ def rebuild_clay(base_path: str, geo: EcGeometry, missing: list[int],
             raise ValueError(f"shard size {shard_size} is not a multiple "
                              f"of the small block {small}")
         plane_idx = np.asarray(plane)
-        with open(base_path + to_ext(lost), "wb") as out:
-            for w0 in range(0, shard_size // small, wins_per_batch):
-                wn = min(wins_per_batch, shard_size // small - w0)
+        n_win = shard_size // small
+
+        def produce():
+            nonlocal bytes_read
+            for w0 in range(0, n_win, wins_per_batch):
+                wn = min(wins_per_batch, n_win - w0)
                 # helper-major [H, wn, beta, win_a], gathered straight
-                # into the dispatch's staging: the gather is the
-                # partial-range plane read; the kernel returns the natural
-                # [wn, alpha, win_a] layer-major layout, written verbatim
+                # into the dispatch's staging, a buffer per batch that the
+                # queued item keeps until its windows are written: the
+                # gather is the partial-range plane read; the kernel
+                # returns the natural [wn, alpha, win_a] layer-major
+                # layout, written verbatim
                 with stage("ec_read", codec.label, "rebuild"):
                     x4 = staging(codec.device,
                                  (len(helpers), wn, len(plane), win_a))
@@ -286,13 +299,22 @@ def rebuild_clay(base_path: str, geo: EcGeometry, missing: list[int],
                     for hi, h in enumerate(helpers):
                         span = inputs[h][w0 * small:(w0 + wn) * small]
                         # mode="clip": "raise" would gather into a buffer
-                        # and copy it into `out`
+                        # and copy it into dst[hi]
                         np.take(span.reshape(wn, alpha, win_a), plane_idx,
                                 axis=1, out=dst[hi], mode="clip")
                 bytes_read += dst.size
-                rec = codec.repair(lost, x4)
-                with stage("ec_write", codec.label, "rebuild"):
-                    out.write(rec.tobytes())
+                yield x4, codec.repair_begin(lost, x4)
+
+        def consume(item):
+            _, fetch = item
+            rec = fetch()
+            # the array itself, as the RS writer does: a bytes copy
+            # (tobytes) would hold the GIL the producer's gather needs
+            with stage("ec_write", codec.label, "rebuild"):
+                out.write(rec)
+
+        with open(base_path + to_ext(lost), "wb") as out:
+            _pipelined(produce(), consume, codec.label, "rebuild")
         codec_metrics().observe("clay", "reconstruct", bytes_read,
                                 time.perf_counter() - t0)
         if stats is not None:

@@ -31,75 +31,21 @@ import contextlib
 import functools
 import itertools
 import os
-import queue as _queue
-import threading
 from typing import Union
 
 import numpy as np
 
-from ...ops.codec import RSCodec, current_job, job, span, stage, staging
+from ...ops.codec import RSCodec, job, span, stage, staging
 from ...parallel.mesh_codec import MeshCodec, codec_for_devices
 from ..idx import index_array_to_bytes, parse_index_bytes
 from ..types import TOMBSTONE_FILE_SIZE
 from .codes import (ClayWindowCodec, LrcWindowCodec, rebuild_clay,
                     rebuild_lrc, require_ported, window_codec_for)
 from .layout import DEFAULT_GEOMETRY, EcGeometry, to_ext
+from .pipeline import _pipelined
 
 # Per-shard bytes fed to one codec call: 8 MB x 10 shards = 80 MB reads.
 DEFAULT_BATCH_BYTES = 8 * 1024 * 1024
-
-# Batches in flight between the reading/submitting producer and the
-# shard-file writer thread.  2 = classic double buffering: while the device
-# encodes batch N and the writer drains N-1, the producer reads N+1 from
-# disk.
-PIPELINE_DEPTH = 2
-
-
-def _pipelined(produce, consume, backend: str, op: str) -> None:
-    """Run `produce` (a generator issuing async device work per item) against
-    `consume(item)` on a writer thread, PIPELINE_DEPTH items in flight.
-
-    The producer runs on the calling thread: it reads the next window from
-    disk and submits its codec call while the device chews the previous one
-    and the writer blocks in fetch()/file-writes.  A bounded queue keeps at
-    most PIPELINE_DEPTH batches of host buffers alive, and writes happen in
-    submission order (single consumer, FIFO queue), which append-only shard
-    files require.  Each put, and the end of the stream with the writer's
-    drain, is an ec_queue_wait stage under (backend, op); the writer thread
-    takes the caller's job."""
-    q: _queue.Queue = _queue.Queue(maxsize=PIPELINE_DEPTH)
-    errs: list[BaseException] = []
-    outer = current_job()
-
-    def writer():
-        with job(*outer) if outer else contextlib.nullcontext():
-            while True:
-                item = q.get()
-                if item is None:
-                    return
-                if not errs:
-                    try:
-                        consume(item)
-                    except BaseException as e:  # surfaced to the caller
-                        errs.append(e)
-                # after an error keep draining so the producer never
-                # deadlocks on a full queue
-
-    t = threading.Thread(target=writer, name="ec-writer")
-    t.start()
-    try:
-        for item in produce:
-            if errs:
-                break
-            with stage("ec_queue_wait", backend, op):
-                q.put(item)
-    finally:
-        with stage("ec_queue_wait", backend, op):
-            q.put(None)
-            t.join()
-    if errs:
-        raise errs[0]
-
 
 Codec = Union[RSCodec, MeshCodec, ClayWindowCodec, LrcWindowCodec]
 _CODEC_CLASS = {"rs": (RSCodec, MeshCodec), "clay": ClayWindowCodec,

@@ -20,7 +20,7 @@ from seaweedfs_tpu.storage import ec as ref_ec
 from seaweedfs_tpu_torch.ops import clay_matrix, codec as codec_mod
 from seaweedfs_tpu_torch.ops.codec import RSCodec
 from seaweedfs_tpu_torch.storage import ec
-from seaweedfs_tpu_torch.storage.ec import encoder
+from seaweedfs_tpu_torch.storage.ec import encoder, pipeline
 
 # one intra-op thread: the plain torch versions are small here, and a
 # thread per core would crowd the other test workers on this host
@@ -255,6 +255,6 @@ def test_slow_writer_sees_every_batch_as_gathered(tmp_path, codec, ref_codec,
     else:
         assert ec.rebuild_ec_files(base, GEO, codec, batch_bytes=1024) \
             == lost
-    assert len(written) > 2 * (encoder.PIPELINE_DEPTH + 2)
+    assert len(written) > 2 * (pipeline.PIPELINE_DEPTH + 2)
     for s in range(14):
         assert _read(base + ec.to_ext(s)) == _read(ref_base + ec.to_ext(s)), s

@@ -202,8 +202,9 @@ def encoded(needle_volume, tmp_path, request):
     ("lrc", [1, 12]), ("rs", [1, 4, 8, 12])], indirect=["encoded"])
 def test_rebuild_stages(encoded, lost):
     """Per window: RS a read of the k survivors into the codec's layout,
-    one reconstruct dispatch, a write and a queue wait (plus the end of
-    the stream); Clay and LRC a read, a dispatch and a write, in
+    and a Clay single loss a read of the helpers' plane layers, then one
+    reconstruct dispatch, a write and a queue wait (plus the end of the
+    stream); a Clay multi-loss and LRC a read, a dispatch and a write, in
     sequence."""
     kind, geo, base, ref_base = encoded
     golden = {}
@@ -219,7 +220,7 @@ def test_rebuild_stages(encoded, lost):
     # windows of BATCH bytes of each shard (Clay: BATCH // 1024 windows)
     w = -(-os.path.getsize(base + ec.to_ext(lost[0])) // BATCH)
     lb = LABEL[kind]
-    if kind == "rs":
+    if kind == "rs" or (kind == "clay" and len(lost) == 1):
         want = {("ec_read", lb, "rebuild"): w,
                 ("codec_submit", lb, "reconstruct"): w,
                 ("codec_wait", lb, "reconstruct"): w,
@@ -419,10 +420,10 @@ def test_encode_spans(needle_volume, tmp_path):
 
 @pytest.mark.parametrize("encoded", ["rs", "clay"], indirect=True)
 def test_rebuild_spans(encoded, tmp_path):
-    """The serving binding's rebuild: its job holds the codec's build and
-    the survivors' read; RS writes and waits on the writer thread, Clay
-    on the caller's."""
-    kind, geo, base, _ = encoded
+    """The serving binding's rebuild of one lost shard: its job holds the
+    codec's build and the survivors' read; RS and Clay write and wait on
+    the writer thread."""
+    base = encoded[2]
     from seaweedfs_tpu_torch import serving
     os.remove(base + ec.to_ext(5))
     bound = serving.bind("cpu")
@@ -430,12 +431,8 @@ def test_rebuild_spans(encoded, tmp_path):
                              tmp_path)
     names = {"ec.rebuild", "codec.build", "ec.read", "codec.submit",
              "codec.wait", "ec.write"}
-    if kind == "rs":
-        _check_spans(spans, nodes, "ec.rebuild", str(VID),
-                     names | {"ec.queue_wait"},
-                     writer=("ec.write", "codec.wait"))
-    else:
-        _check_spans(spans, nodes, "ec.rebuild", str(VID), names)
+    _check_spans(spans, nodes, "ec.rebuild", str(VID),
+                 names | {"ec.queue_wait"}, writer=("ec.write", "codec.wait"))
 
 
 @pytest.mark.parametrize("encoded", ["rs", "clay"], indirect=True)
