@@ -74,6 +74,9 @@ _STAGES = (
      "EC codec dispatch blocked on the device for its result"),
     ("needle_parse", "needle.parse",
      "needle header, body and CRC parse of an EC read"),
+    ("ec_plan", "ec.plan",
+     "EC repair planning: the read set and decode matrix of a rebuild or "
+     "degraded read"),
 )
 STAGE_SPANS = {attr: span_name for attr, span_name, _ in _STAGES}
 

@@ -217,14 +217,16 @@ def rebuild_lrc(base_path: str, geo: EcGeometry, missing: list[int],
                 stats: "dict | None" = None) -> list[int]:
     """LRC rebuild: the planner picks the cheapest read set, one local
     group for a single loss (k/l reads instead of k), a global solve
-    otherwise; each window is one gf_apply on the codec's device."""
+    otherwise (with the opening of its shards, the stage ec_plan); each
+    window is one gf_apply on the codec's device."""
     t0 = time.perf_counter()
     n = geo.total_shards
     have = [os.path.exists(base_path + to_ext(i)) for i in range(n)]
-    plan = lrc.plan_repair(codec.lgeo, missing,
-                           available=[i for i in range(n) if have[i]])
-    inputs = {i: np.memmap(base_path + to_ext(i), dtype=np.uint8,
-                           mode="r") for i in plan.read_shards}
+    with stage("ec_plan", codec.label, "rebuild"):
+        plan = lrc.plan_repair(codec.lgeo, missing,
+                               available=[i for i in range(n) if have[i]])
+        inputs = {i: np.memmap(base_path + to_ext(i), dtype=np.uint8,
+                               mode="r") for i in plan.read_shards}
     shard_size = len(next(iter(inputs.values())))
     outputs = {i: open(base_path + to_ext(i), "wb") for i in missing}
     bytes_read = 0

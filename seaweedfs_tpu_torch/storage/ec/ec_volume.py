@@ -269,7 +269,8 @@ class EcVolume:
         repair re-planned globally over those that answered."""
         with stage("ec_read", self.codec.label, "read"):
             lgeo = self.codec.lgeo
-            plan = lrc.plan_repair(lgeo, [missing_shard])
+            with stage("ec_plan", self.codec.label, "read"):
+                plan = lrc.plan_repair(lgeo, [missing_shard])
             rows = []
             for sid in plan.read_shards:
                 raw = self._read_local_or_remote(sid, offset, size)
@@ -286,8 +287,9 @@ class EcVolume:
                     if raw is not None and len(raw) == size:
                         got[sid] = np.frombuffer(raw, dtype=np.uint8)
                 try:
-                    plan = lrc.plan_repair(lgeo, [missing_shard],
-                                           available=sorted(got))
+                    with stage("ec_plan", self.codec.label, "read"):
+                        plan = lrc.plan_repair(lgeo, [missing_shard],
+                                               available=sorted(got))
                 except ValueError as e:
                     raise EcShardUnavailableError(
                         f"vol {self.volume_id} shard {missing_shard}: "

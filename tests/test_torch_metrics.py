@@ -35,7 +35,8 @@ STAGE_FAMILIES = ("seaweedfs_ec_read_seconds", "seaweedfs_ec_write_seconds",
                   "seaweedfs_ec_queue_wait_seconds",
                   "seaweedfs_codec_submit_seconds",
                   "seaweedfs_codec_wait_seconds",
-                  "seaweedfs_needle_parse_seconds")
+                  "seaweedfs_needle_parse_seconds",
+                  "seaweedfs_ec_plan_seconds")
 # the port's count of dispatch input bytes by how they reached the upload
 STAGED_FAMILY = "seaweedfs_codec_staged_bytes_total"
 
@@ -94,7 +95,7 @@ def test_codec_registry_families_and_label_keys():
             else [["backend", "op"], ["backend", "op", "le"]]
         assert keys in want, ln
     # the JAX package's four families first, in its order, then exactly
-    # the six stage histograms, in this order, then the staged bytes
+    # the seven stage histograms, in this order, then the staged bytes
     ref_text = ref_codec_mod.codec_metrics().registry.render()
     types = re.findall(r"# TYPE (\S+ \S+)", text)
     ref_types = re.findall(r"# TYPE (\S+ \S+)", ref_text)

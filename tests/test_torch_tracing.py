@@ -205,7 +205,7 @@ def test_rebuild_stages(encoded, lost):
     and a Clay single loss a read of the helpers' plane layers, then one
     reconstruct dispatch, a write and a queue wait (plus the end of the
     stream); a Clay multi-loss and LRC a read, a dispatch and a write, in
-    sequence."""
+    sequence, LRC after one plan of the rebuild."""
     kind, geo, base, ref_base = encoded
     golden = {}
     for s in lost:
@@ -233,6 +233,8 @@ def test_rebuild_stages(encoded, lost):
                 ("codec_submit", lb, "reconstruct"): w,
                 ("codec_wait", lb, "reconstruct"): w,
                 ("ec_write", lb, "rebuild"): w}
+        if kind == "lrc":
+            want[("ec_plan", lb, "rebuild")] = 1
         assert st.seconds(FAMILIES) <= st.wall
     assert w > 1
     assert st.counts() == want
@@ -297,9 +299,9 @@ def _degraded_reads(vol, needles, lost, limit=None):
                          indirect=True)
 def test_degraded_read_stages(encoded, needle_volume):
     """Per read: one read stage per interval and one more per degraded
-    interval (its survivors), one dispatch per degraded interval, one
-    parse; the stages within the reads' time; answers as the JAX
-    package's reads of its own encode."""
+    interval (its survivors), one dispatch per degraded interval (LRC:
+    one plan too), one parse; the stages within the reads' time; answers
+    as the JAX package's reads of its own encode."""
     kind, geo, base, ref_base = encoded
     _, needles = needle_volume
     lost = 3
@@ -325,10 +327,13 @@ def test_degraded_read_stages(encoded, needle_volume):
     lb = LABEL[kind]
     ivs = sum(r[1] for r in reads)
     bad = sum(r[2] for r in reads)
-    assert st.counts() == {("ec_read", lb, "read"): ivs + bad,
-                           ("codec_submit", lb, "reconstruct"): bad,
-                           ("codec_wait", lb, "reconstruct"): bad,
-                           ("needle_parse", lb, "read"): len(reads)}
+    want = {("ec_read", lb, "read"): ivs + bad,
+            ("codec_submit", lb, "reconstruct"): bad,
+            ("codec_wait", lb, "reconstruct"): bad,
+            ("needle_parse", lb, "read"): len(reads)}
+    if kind == "lrc":
+        want[("ec_plan", lb, "read")] = bad
+    assert st.counts() == want
     assert st.seconds(FAMILIES) <= st.wall
 
 
@@ -418,12 +423,12 @@ def test_encode_spans(needle_volume, tmp_path):
     assert sum(e["name"] == "ec.encode_volume" for e in spans) == 2
 
 
-@pytest.mark.parametrize("encoded", ["rs", "clay"], indirect=True)
+@pytest.mark.parametrize("encoded", ["rs", "clay", "lrc"], indirect=True)
 def test_rebuild_spans(encoded, tmp_path):
     """The serving binding's rebuild of one lost shard: its job holds the
     codec's build and the survivors' read; RS and Clay write and wait on
-    the writer thread."""
-    base = encoded[2]
+    the writer thread; LRC plans first and writes on the caller's."""
+    kind, base = encoded[0], encoded[2]
     from seaweedfs_tpu_torch import serving
     os.remove(base + ec.to_ext(5))
     bound = serving.bind("cpu")
@@ -431,11 +436,13 @@ def test_rebuild_spans(encoded, tmp_path):
                              tmp_path)
     names = {"ec.rebuild", "codec.build", "ec.read", "codec.submit",
              "codec.wait", "ec.write"}
-    _check_spans(spans, nodes, "ec.rebuild", str(VID),
-                 names | {"ec.queue_wait"}, writer=("ec.write", "codec.wait"))
+    extra, writer = ({"ec.plan"}, ()) if kind == "lrc" else (
+        {"ec.queue_wait"}, ("ec.write", "codec.wait"))
+    _check_spans(spans, nodes, "ec.rebuild", str(VID), names | extra,
+                 writer=writer)
 
 
-@pytest.mark.parametrize("encoded", ["rs", "clay"], indirect=True)
+@pytest.mark.parametrize("encoded", ["rs", "clay", "lrc"], indirect=True)
 def test_read_spans(encoded, needle_volume, tmp_path):
     kind, geo, base, _ = encoded
     _, needles = needle_volume
@@ -450,7 +457,8 @@ def test_read_spans(encoded, needle_volume, tmp_path):
     vol.close()
     _check_spans(spans, nodes, "ec.read_needle", f"{VID}:{nid:x}",
                  {"ec.read_needle", "ec.read", "codec.submit",
-                  "codec.wait", "needle.parse"})
+                  "codec.wait", "needle.parse"}
+                 | ({"ec.plan"} if kind == "lrc" else set()))
 
 
 # -- the profiler off ---------------------------------------------------------
@@ -483,7 +491,9 @@ def test_no_span_with_the_profiler_off(needle_volume, tmp_path,
         for nid, _, _ in _degraded_reads(vol, needles, 3, limit=2):
             assert bytes(vol.read_needle(nid).data) == needles[nid][1]
         vol.close()
-        assert {fam for fam, _, _ in st.counts()} == set(FAMILIES)
+        # every family; RS has no repair planner
+        assert {fam for fam, _, _ in st.counts()} == set(FAMILIES) - (
+            {"ec_plan"} if kind == "rs" else set())
 
 
 # -- the helper ----------------------------------------------------------------
