@@ -15,11 +15,13 @@ overhead.
 
 Execution: the clay encode and single-loss repair each run as one launch of
 a fused kernel (ops/clay_structured.py over csrc/clay_fused.cu); a clay
-multi-loss rebuild, a clay degraded read and every LRC product apply a
-matrix from the numpy oracles (ops/clay_matrix.py, ops/lrc.py) through
-codec.gf_apply on the device.  LRC is scalar per byte column like RS, so
-its advantage lives in the rebuild planner (lrc.plan_repair): a single loss
-reads one local group.
+multi-loss rebuild, a clay degraded read, the LRC encode and the LRC
+degraded read apply a matrix from the numpy oracles (ops/clay_matrix.py,
+ops/lrc.py) through codec.gf_apply on the device.  The LRC rebuild applies
+its plan's matrix on the same dense GF(2^8) kernel through
+LrcWindowCodec.reconstruct_begin, one asynchronous dispatch a window.  LRC
+is scalar per byte column like RS, so its advantage lives in the rebuild
+planner (lrc.plan_repair): a single loss reads one local group.
 
 On a device mesh (a `Mesh` passed as the device) both window codecs
 encode through the mesh arms of parallel/mesh_codec.py: the clay windows
@@ -37,9 +39,10 @@ import numpy as np
 import torch
 
 from ...ops import clay_matrix, clay_structured, lrc
-from ...ops.codec import (codec_metrics, device_call_begin, gf_apply,
-                          host_input, host_staged, metered_fetch,
-                          resolve_device, stage, staging, waited)
+from ...ops.codec import (_apply_form_cached, codec_metrics,
+                          device_call_begin, gf_apply, host_input,
+                          host_staged, metered_fetch, resolve_device, stage,
+                          staging, waited)
 from ...parallel.mesh import Mesh
 from ...parallel.mesh_codec import (clay_mesh_encode_begin,
                                     gf_mesh_encode_begin)
@@ -88,7 +91,8 @@ class LrcWindowCodec:
     """LRC encode: the [l + r, k] parity rows of the generator applied to
     [k, W] data, through gf_apply (the GF(2^8) kernel) on one device, or
     on a mesh through gf_mesh_encode_begin (the GF(2^8) kernel at every
-    position).  `device` as `placement` takes it."""
+    position); and the rebuild's product (`reconstruct_begin`) on one
+    device.  `device` as `placement` takes it."""
 
     label = "lrc"     # the backend label of its codec metrics
 
@@ -100,6 +104,8 @@ class LrcWindowCodec:
         self.mesh, self.device = placement(device)
         self.parity_rows = np.ascontiguousarray(
             lrc.generator_matrix(self.lgeo)[self.k:])
+        self._stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
 
     def encode(self, data: np.ndarray) -> np.ndarray:
         return self.encode_begin(data)()
@@ -120,6 +126,29 @@ class LrcWindowCodec:
             fetch = lambda: parity  # noqa: E731
         return metered_fetch(fetch, self.label, "encode", data.nbytes, t0,
                              volumes=volumes)
+
+    def reconstruct_begin(self, matrix: np.ndarray,
+                          x: "np.ndarray | torch.Tensor"):
+        """Start out [MO, W] = matrix [MO, KI] ∘GF∘ x [KI, W] (a repair
+        plan's matrix on the shards it reads) asynchronously on the
+        codec's device; returns fetch() -> out.  A tensor from `staging`
+        is uploaded as it is, any other input copied into staging first
+        (`host_staged`); the caller keeps x unchanged until fetch().  Not
+        observed in the op histogram: the rebuild observes once per
+        rebuild."""
+        M = np.ascontiguousarray(matrix, dtype=np.uint8)
+        with stage("codec_submit", self.label, "reconstruct"):
+            product, form, held = _apply_form_cached(M.tobytes(), M.shape,
+                                                     self.device)
+            if self._stream is not None:
+                # the form cache may drop them while the stream reads
+                for t in held:
+                    t.record_stream(self._stream)
+            fetch = device_call_begin(
+                self.device, self._stream,
+                host_staged(self.device, x, (self.label, "reconstruct")),
+                lambda d: product(form, d))
+        return waited(fetch, self.label, "reconstruct")
 
 
 class ClayWindowCodec:
@@ -217,8 +246,11 @@ def rebuild_lrc(base_path: str, geo: EcGeometry, missing: list[int],
                 stats: "dict | None" = None) -> list[int]:
     """LRC rebuild: the planner picks the cheapest read set, one local
     group for a single loss (k/l reads instead of k), a global solve
-    otherwise (with the opening of its shards, the stage ec_plan); each
-    window is one gf_apply on the codec's device."""
+    otherwise (with the opening of its shards, the stage ec_plan).  Each
+    window of the read set is gathered into the dispatch's staging and
+    rebuilt by one `reconstruct_begin`, pipelined as the RS rebuild is
+    (`_pipelined`): the next window's gather and dispatch while a writer
+    thread waits for a window's rows and appends them."""
     t0 = time.perf_counter()
     n = geo.total_shards
     have = [os.path.exists(base_path + to_ext(i)) for i in range(n)]
@@ -230,18 +262,34 @@ def rebuild_lrc(base_path: str, geo: EcGeometry, missing: list[int],
     shard_size = len(next(iter(inputs.values())))
     outputs = {i: open(base_path + to_ext(i), "wb") for i in missing}
     bytes_read = 0
-    try:
+
+    def produce():
+        nonlocal bytes_read
         for off in range(0, shard_size, batch_bytes):
             width = min(batch_bytes, shard_size - off)
+            # the read set gathered straight into the dispatch's staging,
+            # a buffer per window that the queued item keeps until its
+            # rows are written
             with stage("ec_read", codec.label, "rebuild"):
-                x = np.stack([np.asarray(inputs[i][off:off + width])
-                              for i in plan.read_shards])
-            bytes_read += x.size
-            rec = gf_apply(plan.matrix, x, device=codec.device,
-                           metered=(codec.label, "reconstruct"))
-            with stage("ec_write", codec.label, "rebuild"):
-                for row, t in enumerate(plan.missing):
-                    outputs[t].write(rec[row].tobytes())
+                staged = staging(codec.device,
+                                 (len(plan.read_shards), width))
+                dst = staged.numpy()
+                for row, i in enumerate(plan.read_shards):
+                    dst[row] = inputs[i][off:off + width]
+            bytes_read += staged.nbytes
+            yield staged, codec.reconstruct_begin(plan.matrix, staged)
+
+    def consume(item):
+        _, fetch = item
+        rec = fetch()
+        # the arrays themselves, as the RS writer does: a bytes copy
+        # (tobytes) would hold the GIL the producer's gather needs
+        with stage("ec_write", codec.label, "rebuild"):
+            for row, t in enumerate(plan.missing):
+                outputs[t].write(rec[row])
+
+    try:
+        _pipelined(produce(), consume, codec.label, "rebuild")
     finally:
         for f in outputs.values():
             f.close()

@@ -1,5 +1,6 @@
 """The producer / writer overlap of the bulk EC loops: the encode and the
-RS rebuild of encoder.py, the Clay single-loss rebuild of codes.py."""
+RS rebuild of encoder.py, the Clay single-loss rebuild and the LRC rebuild
+of codes.py."""
 
 from __future__ import annotations
 

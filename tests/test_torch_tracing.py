@@ -202,10 +202,11 @@ def encoded(needle_volume, tmp_path, request):
     ("lrc", [1, 12]), ("rs", [1, 4, 8, 12])], indirect=["encoded"])
 def test_rebuild_stages(encoded, lost):
     """Per window: RS a read of the k survivors into the codec's layout,
-    and a Clay single loss a read of the helpers' plane layers, then one
+    a Clay single loss a read of the helpers' plane layers, and LRC a read
+    of its plan's shards after one plan of the rebuild, then one
     reconstruct dispatch, a write and a queue wait (plus the end of the
-    stream); a Clay multi-loss and LRC a read, a dispatch and a write, in
-    sequence, LRC after one plan of the rebuild."""
+    stream); a Clay multi-loss a read, a dispatch and a write, in
+    sequence."""
     kind, geo, base, ref_base = encoded
     golden = {}
     for s in lost:
@@ -220,21 +221,21 @@ def test_rebuild_stages(encoded, lost):
     # windows of BATCH bytes of each shard (Clay: BATCH // 1024 windows)
     w = -(-os.path.getsize(base + ec.to_ext(lost[0])) // BATCH)
     lb = LABEL[kind]
-    if kind == "rs" or (kind == "clay" and len(lost) == 1):
+    if kind in ("rs", "lrc") or (kind == "clay" and len(lost) == 1):
         want = {("ec_read", lb, "rebuild"): w,
                 ("codec_submit", lb, "reconstruct"): w,
                 ("codec_wait", lb, "reconstruct"): w,
                 ("ec_write", lb, "rebuild"): w,
                 ("ec_queue_wait", lb, "rebuild"): w + 1}
-        assert st.seconds(PRODUCER) <= st.wall
+        if kind == "lrc":
+            want[("ec_plan", lb, "rebuild")] = 1
+        assert st.seconds(PRODUCER + ("ec_plan",)) <= st.wall
         assert st.seconds(WRITER) <= st.wall
     else:
         want = {("ec_read", lb, "rebuild"): w,
                 ("codec_submit", lb, "reconstruct"): w,
                 ("codec_wait", lb, "reconstruct"): w,
                 ("ec_write", lb, "rebuild"): w}
-        if kind == "lrc":
-            want[("ec_plan", lb, "rebuild")] = 1
         assert st.seconds(FAMILIES) <= st.wall
     assert w > 1
     assert st.counts() == want
@@ -426,8 +427,8 @@ def test_encode_spans(needle_volume, tmp_path):
 @pytest.mark.parametrize("encoded", ["rs", "clay", "lrc"], indirect=True)
 def test_rebuild_spans(encoded, tmp_path):
     """The serving binding's rebuild of one lost shard: its job holds the
-    codec's build and the survivors' read; RS and Clay write and wait on
-    the writer thread; LRC plans first and writes on the caller's."""
+    codec's build and the survivors' read; every kind writes and waits on
+    the writer thread, LRC after planning on the caller's."""
     kind, base = encoded[0], encoded[2]
     from seaweedfs_tpu_torch import serving
     os.remove(base + ec.to_ext(5))
@@ -436,10 +437,9 @@ def test_rebuild_spans(encoded, tmp_path):
                              tmp_path)
     names = {"ec.rebuild", "codec.build", "ec.read", "codec.submit",
              "codec.wait", "ec.write"}
-    extra, writer = ({"ec.plan"}, ()) if kind == "lrc" else (
-        {"ec.queue_wait"}, ("ec.write", "codec.wait"))
+    extra = {"ec.queue_wait"} | ({"ec.plan"} if kind == "lrc" else set())
     _check_spans(spans, nodes, "ec.rebuild", str(VID), names | extra,
-                 writer=writer)
+                 writer=("ec.write", "codec.wait"))
 
 
 @pytest.mark.parametrize("encoded", ["rs", "clay", "lrc"], indirect=True)
